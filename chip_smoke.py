@@ -7,9 +7,11 @@ Phases, each printing one JSON line:
 
   build        compile every CUDA kernel of the port (one ``nvcc`` per
                source, all started together) and record the toolchain
-  kernel       every kernel against its plain torch twin and the sort
-               oracle (``torch.equal``) at the shapes the path gives it,
-               with edge rows; kernel / twin / library times and the bound
+  kernel       every kernel against its plain torch version
+               (``torch.equal``; EP's sums within rtol 1e-6) at the shapes
+               the paths give it and at edge cases; kth_free also against
+               the sort oracle.  Kernel / device / plain / library times
+               and the bound, one line per kernel
   paper        the paper's NPB K sweep; the paper-claim assertions hold
   campaign     the documented campaign: 10,000 Poisson NPB jobs at rate
                0.5, K in {0, .05, .1, .2, .3} x 4 seeds, stragglers and
@@ -19,6 +21,16 @@ Phases, each printing one JSON line:
                synchronisation
   cross_device the first 1,000 jobs on the CPU (twin) against the card
                (kernel) within the parity bands of PERF.md
+  workloads    the NPB analogues (EP, IS, BT, SP, LU) through
+               ``run_benchmark`` at ``small`` and at NPB class A sizes
+               (``A``; BT/SP/LU, whose ``small`` is their ``A``, run
+               once): each verifies, launches its kernel the expected
+               number of times and equals its ``force="torch"`` run (EP's
+               sums within rtol 1e-6); wall time, Mop/s, device idle share
+  executed_campaign  28 sampled NPB jobs placed by ``select_system`` over a
+               ``ProfileStore`` (modes paper, fastest, first_free; K = 0.10;
+               Skylake degraded x3 after job 14), each job executed on the
+               card at ``smoke`` size and verified; energy and makespan
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -83,11 +95,12 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def _kernel_device_us(fn, name: str, iters: int = 200):
-    """Mean device execution time (µs) of the CUDA kernels whose name
-    contains ``name`` over ``iters`` calls of ``fn``, from a profiler
-    trace: the kernel alone, without the host's launch gaps that the
-    back-to-back event timing includes.  None if the trace is empty."""
+def _device_us_per_call(fn, names, iters: int = 200):
+    """Mean device time (µs) per call of ``fn`` spent in the CUDA kernels
+    (and memsets) whose name contains one of ``names``, from a profiler
+    trace of ``iters`` calls: the kernels alone, without the host's
+    launch gaps that the back-to-back event timing includes.  None if the
+    trace is empty."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -96,8 +109,32 @@ def _kernel_device_us(fn, name: str, iters: int = 200):
         torch.cuda.synchronize()
     times = [e.device_time_total for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
-             and name in e.name]
-    return sum(times) / len(times) if times else None
+             and any(n in e.name for n in names)]
+    return sum(times) / iters if times else None
+
+
+def _device_busy_us(fn):
+    """Device time (µs) of every CUDA kernel, memset and copy one call of
+    ``fn`` makes, from a profiler trace (None if the trace is empty)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    times = [e.device_time_total for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(times) if times else None
+
+
+def _bound(bytes_moved: float, ops: float) -> dict:
+    """The least time for the work: bytes over the HBM rate against
+    operations over the vector rate, whichever is larger."""
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / VECTOR_OPS_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes=bytes_moved, ops=ops)
 
 
 def phase_build() -> dict:
@@ -162,32 +199,199 @@ def phase_kernel() -> dict:
               f"kth_free kernel != CPU sort ({name})")
         max_err = max(max_err, float((out - twin).abs().max()))
 
+    def timings(free, nreq):
+        """Kernel, device, twin and sort+gather times and the bound of
+        one shape: each input byte read once, each output written once;
+        32 compare-and-count passes over every key."""
+        n, rows = free.shape[-1], nreq.numel()
+        idx = (nreq.long() - 1).clamp(0, n - 1).unsqueeze(-1)
+        t = dict(
+            kernel_us=cuda_ms(lambda: kth_free_cuda(free, nreq), 2000) * 1e3,
+            kernel_device_us=_device_us_per_call(
+                lambda: kth_free_cuda(free, nreq), ("kth_free",)),
+            plain_us=cuda_ms(lambda: radix_select_kth(free, nreq), 50) * 1e3,
+            library_us=cuda_ms(lambda: torch.sort(free, -1).values.gather(
+                -1, idx), 500) * 1e3)
+        t.update(_bound(free.numel() * 4 + rows * 8, 32 * free.numel() * 2))
+        return t
+
+    # the campaign step's shape; the EASY window's (the batched entry)
     free, nreq = cases["slice"]
-    rows, n = nreq.numel(), free.shape[-1]
-    kernel_ms = cuda_ms(lambda: kth_free_cuda(free, nreq), 2000)
-    twin_ms = cuda_ms(lambda: radix_select_kth(free, nreq), 50)
-    idx = (nreq.long() - 1).clamp(0, n - 1).unsqueeze(-1)
-    lib_ms = cuda_ms(lambda: torch.sort(free, -1).values.gather(-1, idx),
-                     500)
-    easy_free, easy_nreq = cases["easy"]
-    easy_ms = cuda_ms(lambda: kth_free_cuda(easy_free, easy_nreq), 2000)
-    device_us = _kernel_device_us(lambda: kth_free_cuda(free, nreq),
-                                  "kth_free")
-    # least time for the work: each input byte read once, each output
-    # written once; 32 compare-and-count passes over every key
-    bytes_moved = free.numel() * 4 + rows * 4 + rows * 4
-    ops = 32 * free.numel() * 2
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / VECTOR_OPS_PER_S * 1e3
-    res = dict(shape=list(free.shape), kernel_us=kernel_ms * 1e3,
-               kernel_device_us=device_us,
-               twin_us=twin_ms * 1e3, sort_gather_us=lib_ms * 1e3,
-               easy_shape=list(easy_free.shape), easy_kernel_us=easy_ms * 1e3,
-               bound_us=max(bytes_ms, ops_ms) * 1e3,
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-               bytes=bytes_moved, ops=ops, max_abs_err=max_err,
-               cases=sorted(cases), launches_so_far=kth_free_cuda.launches)
-    emit("kernel", **res)
+    res = dict(shape=list(free.shape), **timings(free, nreq),
+               library="torch.sort + gather (two calls)",
+               easy_shape=list(cases["easy"][0].shape),
+               easy={k: v for k, v in timings(*cases["easy"]).items()
+                     if k not in ("bytes", "ops")},
+               max_abs_err=max_err, cases=sorted(cases),
+               launches_so_far=kth_free_cuda.launches)
+    emit("kernel", name="kth_free", **res)
+    return res
+
+
+def _pairs(n, gen, dev):
+    import torch
+    return torch.rand((2, n), generator=gen, device=dev) * 2 - 1
+
+
+def phase_kernel_ep() -> dict:
+    """The CUDA EP kernel against its plain version: the workload's batch
+    [2, 2^16], a wide [2, 2^22] call and edge pairs."""
+    import torch
+    from repro_torch.kernels.ep import ep_pairs_cuda, ep_pairs_ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    edges = torch.tensor(
+        [[0.0, 1.0, -1.0, 0.0, 1.0, -1.0, 0.6, -0.6, 0.5, 1e-20, 2.0 ** -22,
+          -0.0, float(torch.nextafter(torch.tensor(1.0), torch.tensor(0.0)))],
+         [0.0, 0.0, 0.0, -1.0, 1.0, -1.0, 0.8, -0.8, 0.5, 0.0, 0.0, -0.0,
+          0.0]], device=dev)
+    cases = {"batch": _pairs(2 ** 16, gen, dev),
+             "wide": _pairs(2 ** 22, gen, dev), "edges": edges}
+    max_err, sums_equal = 0.0, True
+    for name, u in cases.items():
+        h, s = ep_pairs_cuda(u)
+        torch.cuda.synchronize()
+        h2, s2 = ep_pairs_ref(u)
+        check(torch.equal(h, h2), f"ep kernel hist != plain ({name})")
+        check(bool(torch.isclose(s, s2, rtol=1e-6, atol=0.0,
+                                 equal_nan=True).all()),
+              f"ep kernel sums beyond rtol 1e-6 of plain ({name}): "
+              f"{s.tolist()} {s2.tolist()}")
+        sums_equal &= bool(((s == s2) | (s.isnan() & s2.isnan())).all())
+        if bool(torch.isfinite(s2).all()):
+            max_err = max(max_err, float((s - s2).abs().max()))
+    check(float(ep_pairs_cuda(edges)[0].sum()) == 9.0,
+          "ep edge pairs: 9 of 13 accepted (t == 0 and t > 1 rejected)")
+    u = cases["batch"]
+    n = u.shape[1]
+    res = dict(shape=list(u.shape),
+               kernel_us=cuda_ms(lambda: ep_pairs_cuda(u), 2000) * 1e3,
+               kernel_device_us=_device_us_per_call(
+                   lambda: ep_pairs_cuda(u), ("ep_partial", "ep_finish")),
+               plain_us=cuda_ms(lambda: ep_pairs_ref(u), 200) * 1e3,
+               library_us=None, library=None,
+               wide_shape=list(cases["wide"].shape),
+               wide_kernel_us=cuda_ms(lambda: ep_pairs_cuda(cases["wide"]),
+                                      200) * 1e3,
+               max_abs_err=max_err, sums_equal=sums_equal,
+               cases=sorted(cases))
+    # per pair: 2 muls, 1 add, 2 compares, log, mul, div, sqrt, 2 muls,
+    # 2 abs, max, convert, clip, count, 2 adds = 20 operations; 8 bytes
+    # read; 48 bytes written
+    res.update(_bound(8 * n + 48, 20 * n))
+    emit("kernel", name="ep", **res)
+    return res
+
+
+def phase_kernel_is() -> dict:
+    """The CUDA histogram kernel against its plain version: IS class A
+    (2^23 keys, 1,024 buckets, shift 16), out-of-range keys, and a bucket
+    count above shared memory (the kernel's global-atomic path)."""
+    import torch
+    from repro_torch.kernels.is_hist import (SMEM_BUCKETS, key_histogram_cuda,
+                                             key_histogram_ref)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n, nb, shift = 2 ** 23, 1024, 16
+    keys = torch.randint(0, nb << shift, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    wild = keys.clone()
+    wild[: n // 8] = torch.randint(-2 ** 31, 0, (n // 8,), generator=gen,
+                                   device=dev, dtype=torch.int32)
+    wild[n // 8: n // 4] = torch.randint(nb << shift, 2 ** 31 - 1, (n // 8,),
+                                         generator=gen, device=dev,
+                                         dtype=torch.int32)
+    big_nb = 2 * SMEM_BUCKETS
+    cases = {"class_A": (keys, nb, shift), "out_of_range": (wild, nb, shift),
+             "global_atomics": (torch.randint(-5, big_nb + 5, (2 ** 22,),
+                                              generator=gen, device=dev,
+                                              dtype=torch.int32), big_nb, 0),
+             "few_keys": (keys[:1000], 16, 26)}
+    for name, (k, b, sh) in cases.items():
+        out = key_histogram_cuda(k, n_buckets=b, bucket_shift=sh)
+        torch.cuda.synchronize()
+        check(torch.equal(out, key_histogram_ref(k, n_buckets=b,
+                                                 bucket_shift=sh)),
+              f"is_hist kernel != plain ({name})")
+    check(float(key_histogram_cuda(wild, n_buckets=nb,
+                                   bucket_shift=shift).sum()) == n - n // 4,
+          "is_hist drops every out-of-range key")
+    fn = lambda: key_histogram_cuda(keys, n_buckets=nb, bucket_shift=shift)  # noqa: E731
+    res = dict(n=n, n_buckets=nb, shift=shift,
+               kernel_us=cuda_ms(fn, 200) * 1e3,
+               kernel_device_us=_device_us_per_call(
+                   fn, ("key_hist", "counts_to_f32", "Memset")),
+               plain_us=cuda_ms(lambda: key_histogram_ref(
+                   keys, n_buckets=nb, bucket_shift=shift), 50) * 1e3,
+               library_us=cuda_ms(lambda: torch.bincount(
+                   keys >> shift, minlength=nb), 50) * 1e3,
+               library="torch.bincount(keys >> shift, minlength=n_buckets)",
+               global_kernel_us=cuda_ms(lambda: key_histogram_cuda(
+                   cases["global_atomics"][0], n_buckets=big_nb,
+                   bucket_shift=0), 50) * 1e3,
+               max_abs_err=0.0, cases=sorted(cases))
+    # per key: shift, 2 compares, 1 atomic add; 4 bytes read; n_buckets
+    # f32 written
+    res.update(_bound(4 * n + 4 * nb, 4 * n))
+    emit("kernel", name="is_hist", **res)
+    return res
+
+
+def phase_kernel_stencil() -> dict:
+    """The CUDA stencil against its plain version at the CFD grids (24^3
+    smoke, 64^3 class A), a non-cubic 48x8x8, 256^3 for bandwidth, other
+    coefficients, and the Dirichlet check of the reference's tests."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.stencil3d import stencil7_cuda, stencil7_ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    grids = {s: torch.randn(s, generator=gen, device=dev)
+             for s in ((24, 24, 24), (64, 64, 64), (48, 8, 8),
+                       (256, 256, 256))}
+    for shape, u in grids.items():
+        for cc, cn in ((-6.0, 1.0), (0.3, -0.7)):
+            out = stencil7_cuda(u, coef_c=cc, coef_n=cn)
+            torch.cuda.synchronize()
+            check(torch.equal(out, stencil7_ref(u, coef_c=cc, coef_n=cn)),
+                  f"stencil7 kernel != plain {shape} ({cc}, {cn})")
+    ones = stencil7_cuda(torch.ones((16, 8, 8), device=dev))
+    check(float(ones[8, 4, 4]) == 0.0 and float(ones[0, 0, 0]) == -3.0,
+          "stencil7 boundary is Dirichlet zero (interior 0, corner -3)")
+    u = grids[(64, 64, 64)]
+    w = torch.zeros((1, 1, 3, 3, 3), device=dev)
+    w[0, 0, 1, 1, 1] = -6.0
+    for i, j, k in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+                    (1, 1, 2)):
+        w[0, 0, i, j, k] = 1.0
+    allow_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False     # full f32, as the kernel
+    try:
+        conv = lambda: F.conv3d(u[None, None], w, padding=1)  # noqa: E731
+        check(bool((conv()[0, 0] - stencil7_cuda(u)).abs().max() < 1e-4),
+              "conv3d yardstick computes the stencil")
+        library_us = cuda_ms(conv, 500) * 1e3
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow_tf32
+    big = grids[(256, 256, 256)]
+    pts = u.numel()
+    res = dict(shape=list(u.shape),
+               kernel_us=cuda_ms(lambda: stencil7_cuda(u), 2000) * 1e3,
+               kernel_device_us=_device_us_per_call(
+                   lambda: stencil7_cuda(u), ("stencil7",)),
+               plain_us=cuda_ms(lambda: stencil7_ref(u), 200) * 1e3,
+               library_us=library_us,
+               library="F.conv3d, 7-point 3x3x3 weight, padding=1, no TF32",
+               big_shape=list(big.shape),
+               big_kernel_us=cuda_ms(lambda: stencil7_cuda(big), 100) * 1e3,
+               big_bound_us=_bound(8 * big.numel(), 8 * big.numel())[
+                   "bound_ms"] * 1e3,
+               max_abs_err=0.0,
+               cases=[list(s) for s in grids] + ["coefs", "dirichlet"])
+    # per point: 6 adds, 2 muls (the reference's flop count says 13 with
+    # the neighbour loads); 4 bytes read and 4 written
+    res.update(_bound(8 * pts, 8 * pts))
+    emit("kernel", name="stencil7", **res)
     return res
 
 
@@ -385,6 +589,218 @@ def phase_cross_device() -> None:
              worst_rel_reduction=worst)
 
 
+def _wrappers() -> dict:
+    """Every kernel wrapper of the port, by kernel name."""
+    from repro_torch.kernels.ep import ep_pairs_cuda
+    from repro_torch.kernels.is_hist import key_histogram_cuda
+    from repro_torch.kernels.kth_free import kth_free_cuda
+    from repro_torch.kernels.stencil3d import stencil7_cuda
+    return {"kth_free": kth_free_cuda, "ep": ep_pairs_cuda,
+            "is_hist": key_histogram_cuda, "stencil7": stencil7_cuda}
+
+
+def _expected_launches(name, size):
+    """(kernel, launches) of one run of program ``name`` at ``size``."""
+    if name == "EP":
+        return "ep", 2 ** (size["ep_m"] - 16)             # batch_pow 16
+    if name == "IS":
+        return "is_hist", 10                              # iterations
+    iters = size["cfd_iters"]
+    return "stencil7", 2 * iters if name == "LU" else iters
+
+
+def _sizes_equal(name, a, b) -> bool:
+    """Whether program ``name`` runs at the same size under scales ``a``
+    and ``b``."""
+    keys = {"EP": ("ep_m",), "IS": ("is_pow",)}.get(
+        name, ("cfd_nx", "cfd_iters"))
+    return all(a[k] == b[k] for k in keys)
+
+
+def _same_result(name, a, b) -> None:
+    """A run through the kernels against its ``force="torch"`` run on the
+    card: equal, but for EP's sums (rtol 1e-6)."""
+    import torch
+    for k, v in a.items():
+        if not torch.is_tensor(v):
+            check(v == b[k], f"{name} {k}: {v} != {b[k]}")
+        elif name == "EP" and k in ("sx", "sy"):
+            check(bool((v - b[k]).abs() <= 1e-6 * b[k].abs()),
+                  f"EP {k} beyond rtol 1e-6: {float(v)} {float(b[k])}")
+        else:
+            check(torch.equal(v, b[k]), f"{name} {k}: kernel != plain run")
+
+
+#: depth-cut copies of the class A runs, profiled for the idle share: the
+#: same per-iteration shapes, fewer iterations
+_PROFILED = {"EP": {"m": 24}, "IS": {"n_pow": 23, "iterations": 10},
+             "BT": {"nx": 64, "iters": 4}, "SP": {"nx": 64, "iters": 4},
+             "LU": {"nx": 64, "iters": 4}}
+
+
+def _idle_share(name) -> dict:
+    """Device idle share of a depth-cut class A run: 1 - device busy time
+    (profiler) / wall time of the same run unprofiled."""
+    import torch
+    from repro_torch.workloads import run_cfd, run_ep, run_is
+    kw = _PROFILED[name]
+    run = {"EP": lambda: run_ep(**kw), "IS": lambda: run_is(**kw)}.get(
+        name, lambda: run_cfd(variant=name, **kw))
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us = _device_busy_us(run)
+    return dict(profiled=kw, profiled_wall_us=wall_us,
+                device_busy_us=busy_us,
+                device_idle_share=(None if busy_us is None
+                                   else 1.0 - busy_us / wall_us))
+
+
+def phase_workloads(counters: dict) -> None:
+    """The NPB analogues through ``run_benchmark`` on the card: the main
+    path of this slice.  Every kernel count is set to 0 just before each
+    run and read just after; the class A runs' counts go to ``counters``.
+    A program whose ``small`` size is its class A size runs once, at A."""
+    import torch
+    from repro_torch.workloads import BENCHMARKS, SCALES, run_benchmark
+    wrappers = _wrappers()
+    for scale in ("small", "A"):
+        for name in BENCHMARKS:
+            if scale == "small" and _sizes_equal(name, SCALES["small"],
+                                                 SCALES["A"]):
+                continue
+            kernel, expect = _expected_launches(name, SCALES[scale])
+            run_benchmark(name, "smoke")                  # warm up
+            torch.cuda.synchronize()
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            res, ok, ops = run_benchmark(name, scale)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: w.launches for k, w in wrappers.items()}
+            check(ok, f"{name} at {scale} fails its verification")
+            check(launches == {**dict.fromkeys(wrappers, 0), kernel: expect},
+                  f"{name} at {scale}: kernel launches {launches}, "
+                  f"expected {expect} of {kernel} only")
+            if scale == "A":
+                counters[kernel] = counters.get(kernel, 0) + \
+                    launches[kernel]
+            t0 = time.perf_counter()
+            plain, plain_ok, _ = run_benchmark(name, scale, force="torch")
+            torch.cuda.synchronize()
+            plain_wall = time.perf_counter() - t0
+            check(plain_ok, f"{name} at {scale}: the plain run fails")
+            _same_result(name, res, plain)
+            row = dict(program=name, scale=scale, verified=ok,
+                       kernel=kernel, launches=launches[kernel],
+                       seconds=wall, mops_per_s=ops / 1e6 / wall,
+                       plain_seconds=plain_wall, equal_to_plain=True)
+            if scale == "A":
+                row.update(_idle_share(name))
+            if name == "EP":
+                row.update(accepted=float(res["accepted"]),
+                           sx=float(res["sx"]), sy=float(res["sy"]))
+            elif name == "IS":
+                row.update(total_counted=float(res["total_counted"]))
+            else:
+                r = res["residuals"]
+                row.update(residual_first=float(r[0]),
+                           residual_last=float(r[-1]))
+            emit("workloads", **row)
+
+
+def _place(mode, store, p, avail, k, dev):
+    import torch
+    from repro_torch.core.algorithm import select_system
+    from repro_torch.utils import prng
+    c_row = torch.as_tensor(store.C[p], dtype=torch.float32, device=dev)
+    t_row = torch.as_tensor(store.T[p], dtype=torch.float32, device=dev)
+    return int(select_system(
+        mode, c_row=c_row, t_row=t_row,
+        runs_row=torch.as_tensor(store.runs[p], dtype=torch.int32,
+                                 device=dev),
+        avail_row=torch.as_tensor(avail, dtype=torch.float32, device=dev),
+        k=torch.tensor(k, dtype=torch.float32, device=dev),
+        c_pred_row=c_row, t_pred_row=t_row, key=prng.key(p, device=dev)))
+
+
+def _executed_campaign(mode, jobs, k, degrade_after):
+    """One executed campaign: each job is placed by ``select_system``,
+    EXECUTED on the card at ``smoke`` size (it must verify), and its
+    measured wall time, mapped onto the chosen system's modelled clock,
+    feeds the profile store."""
+    import numpy as np
+    import torch
+    from repro_torch.core import JSCC_SYSTEMS, NPB_NODES, NPB_PROFILES
+    from repro_torch.core.profiles import ProfileStore
+    from repro_torch.core.workload_model import predict_energy
+    from repro_torch.workloads import run_benchmark
+    dev = torch.device("cuda")
+    systems = list(JSCC_SYSTEMS)
+    names = [sy.name for sy in systems]
+    progs = sorted(set(jobs))
+    pidx = {n: i for i, n in enumerate(progs)}
+    store = ProfileStore(len(progs), len(systems))
+    free = np.zeros(len(systems))
+    slowdown = np.ones(len(systems))
+    total_e, log = 0.0, []
+    for j, prog in enumerate(jobs):
+        if j == degrade_after:
+            slowdown[names.index("Skylake")] = 3.0      # degraded system
+        p = pidx[prog]
+        s = _place(mode, store, p, free, k, dev)
+        t0 = time.perf_counter()
+        _, ok, _ = run_benchmark(prog, "smoke")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(ok, f"executed job {j} ({prog}) fails its verification")
+        prof = NPB_PROFILES[prog]
+        _, w_avg, t_model = predict_energy(
+            prof, systems[s], NPB_NODES[prog][names[s]])
+        t_run = t_model * slowdown[s] * (0.9 + 0.2 * (wall % 1.0))
+        e_run = w_avg * t_run
+        store.update(p, s, e_run / (prof.flops / 1e6), t_run)
+        free[s] += t_run
+        total_e += e_run
+        log.append((prog, names[s], wall))
+    return total_e, float(free.max()), log
+
+
+def phase_executed_campaign() -> None:
+    from repro_torch.data import sample_programs
+    from repro_torch.workloads import SCALES
+    n_jobs, k = 28, 0.10
+    jobs = list(sample_programs(n_jobs, seed=0))
+    wrappers = _wrappers()
+    out = {}
+    for mode in ("paper", "fastest", "first_free"):
+        before = {n: w.launches for n, w in wrappers.items()}
+        t0 = time.perf_counter()
+        energy, makespan, log = _executed_campaign(mode, jobs, k,
+                                                   n_jobs // 2)
+        seconds = time.perf_counter() - t0
+        launches = {n: w.launches - before[n] for n, w in wrappers.items()}
+        expect = dict.fromkeys(wrappers, 0)
+        for prog in jobs:
+            kernel, count = _expected_launches(prog, SCALES["smoke"])
+            expect[kernel] += count
+        check(launches == expect,
+              f"executed jobs launched {launches}, expected {expect}")
+        out[mode] = (energy, makespan)
+        emit("executed_campaign", mode=mode, jobs=n_jobs, k=k,
+             energy_j=energy, makespan_s=makespan, seconds=seconds,
+             verified=n_jobs, launches=launches,
+             placements=[f"{p}->{sy}" for p, sy, _ in log],
+             job_wall_s=[w for _, _, w in log])
+    (e_p, m_p), (e_f, m_f) = out["paper"], out["fastest"]
+    emit("executed_campaign", paper_vs_fastest_energy=(e_p - e_f) / e_f,
+         paper_vs_fastest_makespan=(m_p - m_f) / m_f)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -393,28 +809,45 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     phase_build()
-    kern = phase_kernel()
+    kern = {"kth_free": phase_kernel(), "ep": phase_kernel_ep(),
+            "is_hist": phase_kernel_is(),
+            "stencil7": phase_kernel_stencil()}
     phase_paper()
     counters: dict = {}
     camp = phase_campaign(counters)
     phase_cross_device()
-    kernels = [{
-        "name": "kth_free",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/kth_free/csrc/kth_free.cu",
-        "replaces": "src/repro/kernels/kth_free/kernel.py:81",
-        "launches": counters["kth_free"],
-        "max_abs_err": kern["max_abs_err"],
-        "ms": kern["kernel_us"] / 1e3,
-        "device_ms": (None if kern["kernel_device_us"] is None
-                      else kern["kernel_device_us"] / 1e3),
-        "plain_ms": kern["twin_us"] / 1e3,
-        "bound_ms": kern["bound_us"] / 1e3,
-        "bound_by": kern["bound_by"],
-        "library_ms": kern["sort_gather_us"] / 1e3,
-        "library": "torch.sort + gather (two calls)",
-        "check": "torch.equal vs twin and sort",
-    }]
+    phase_workloads(counters)
+    phase_executed_campaign()
+    meta = {  # name: (source, replaced TPU kernel, how it is checked)
+        "kth_free": ("src/repro_torch/kernels/kth_free/csrc/kth_free.cu",
+                     "src/repro/kernels/kth_free/kernel.py:81",
+                     "torch.equal vs twin and sort"),
+        "ep": ("src/repro_torch/kernels/ep/csrc/ep.cu",
+               "src/repro/kernels/ep/kernel.py:60",
+               "hist torch.equal vs plain; sums rtol 1e-6"),
+        "is_hist": ("src/repro_torch/kernels/is_hist/csrc/is_hist.cu",
+                    "src/repro/kernels/is_hist/kernel.py:37",
+                    "torch.equal vs plain"),
+        "stencil7": ("src/repro_torch/kernels/stencil3d/csrc/stencil7.cu",
+                     "src/repro/kernels/stencil3d/kernel.py:51",
+                     "torch.equal vs plain"),
+    }
+    kernels = []
+    for name, (source, replaces, how) in meta.items():
+        k = kern[name]
+        check(counters.get(name, 0) > 0,
+              f"{name} was not launched on its main path")
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counters[name],
+            "max_abs_err": k["max_abs_err"], "ms": k["kernel_us"] / 1e3,
+            "device_ms": (None if k["kernel_device_us"] is None
+                          else k["kernel_device_us"] / 1e3),
+            "plain_ms": k["plain_us"] / 1e3, "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"],
+            "library_ms": (None if k["library_us"] is None
+                           else k["library_us"] / 1e3),
+            "library": k["library"], "check": how})
     emit("done", seconds=time.perf_counter() - t_start,
          campaign_ms_per_step=camp["ms_per_step"])
     print(json.dumps({"kernels": kernels}), flush=True)

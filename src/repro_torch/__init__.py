@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of the EcoSched campaign scheduling engine.
 
 Mirrors ``src/repro/`` module for module (``core/``, ``kernels/``,
-``data/``, ``utils/``) and is held against it by the ``tests/test_torch_*``
+``data/``, ``workloads/``, ``utils/``) and is held against it by the ``tests/test_torch_*``
 parity suite.  The port imports ``torch``, numpy and the standard library
 only.  Its entry points run on the CUDA device unless the caller asks for
 the CPU (``device="cpu"``); they never fall back to the CPU by themselves.

@@ -20,7 +20,12 @@ from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
 #: kernel name -> CUDA source
-SOURCES = {"kth_free": _HERE / "kth_free" / "csrc" / "kth_free.cu"}
+SOURCES = {
+    "kth_free": _HERE / "kth_free" / "csrc" / "kth_free.cu",
+    "ep": _HERE / "ep" / "csrc" / "ep.cu",
+    "is_hist": _HERE / "is_hist" / "csrc" / "is_hist.cu",
+    "stencil7": _HERE / "stencil3d" / "csrc" / "stencil7.cu",
+}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_DIR = _HERE.parents[2] / "build" / "torch_kernels"
@@ -82,3 +87,15 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def function(name: str, symbol: str, argtypes):
+    """The C entry ``symbol`` of kernel ``name``'s library, with its
+    argument types declared (pointers and the stream as ``c_void_p``:
+    undeclared, ctypes would pass them as 32-bit ints) and an ``int``
+    (CUDA error code) result."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return fn

@@ -60,13 +60,9 @@ def radix_select_kth(node_free, n_req):
 
 
 def _lib():
-    lib = _build.load("kth_free")
-    fn = lib.kth_free_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    return _build.function("kth_free", "kth_free_launch", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
 
 
 def kth_free_cuda(node_free, n_req):

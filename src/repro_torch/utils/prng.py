@@ -3,9 +3,11 @@
 The reference engine draws its fault factors and its ``random``-objective
 picks from ``jax.random`` (threefry2x32, ``jax_threefry_partitionable``
 on).  This module reproduces exactly the draws it makes:
-``key(seed)``, ``split(key)``, ``fold_in(key, j)``, ``uniform(key, (n,))``
-and ``randint(key, (), lo, hi)``.  Threefry is counter based, so every
-draw of a whole ``[B, J]`` campaign is one vectorized pass.
+``key(seed)``, ``split(key)``, ``fold_in(key, j)``, ``uniform(key, shape,
+minval, maxval)``, ``randint(key, shape, lo, hi)`` and, within a stated
+band, ``normal(key, shape)`` (the NPB workloads' draws).  Threefry is
+counter based, so every draw of a whole ``[B, J]`` campaign is one
+vectorized pass.
 
 A key is an int64 tensor ``[..., 2]`` holding two uint32 words; all
 uint32 arithmetic runs in int64 and is masked back to 32 bits.
@@ -14,6 +16,7 @@ uint32 arithmetic runs in int64 and is masked back to 32 bits.
 from __future__ import annotations
 
 import torch
+
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -78,11 +81,31 @@ def random_bits(k, shape=()) -> torch.Tensor:
     return y0 ^ y1
 
 
-def uniform(k, shape=()) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` on [0, 1), float32."""
+def uniform(k, shape=(), minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, minval=, maxval=)``, float32 on
+    [minval, maxval): ``max(minval, floats * (maxval - minval) + minval)``
+    with the bounds and their difference rounded to float32 first.
+    Bit-equal where that difference is a power of two, as it is for every
+    caller (1, 2, and ``normal``'s span, which rounds to 2): the product is
+    then exact, so the reference's fused multiply-add rounds as this
+    multiply and add do."""
     bits = (random_bits(k, shape) >> 9) | 0x3F800000
     # bits < 2**31, so the int32 view is the float's bit pattern
-    return bits.to(torch.int32).view(torch.float32) - 1.0
+    floats = bits.to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def normal(k, shape=()) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in float32:
+    ``sqrt(2) * erfinv(uniform(k, shape, nextafter(-1, 0), 1))``.  The
+    uniform draw is bit-equal; ``torch.erfinv`` differs from XLA's
+    ``erf_inv`` in the last bits (a few 1e-6 relative, see PERF.md)."""
+    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+    u = uniform(k, shape, lo, 1.0)
+    return torch.erfinv(u) * torch.tensor(2.0 ** 0.5, dtype=torch.float32)
 
 
 def randint(k, shape, minval: int, maxval: int) -> torch.Tensor:

@@ -73,6 +73,20 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
     assert res.total_energy.device.type == "cpu"
 
 
+def test_workloads_default_to_cuda_and_never_fall_back(monkeypatch):
+    from repro_torch.workloads import (BENCHMARKS, run_benchmark, run_cfd,
+                                       run_ep, run_is)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in BENCHMARKS:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run_benchmark(name, "smoke")
+    for run in (run_ep, run_is, run_cfd):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run()
+    _, ok, _ = run_benchmark("IS", "smoke", device="cpu")
+    assert ok
+
+
 @pytest.mark.parametrize("kwargs,item", [
     ({"queue": "easy_backfill"}, "item 4"),
     ({"policy": "easy_queue_aware"}, "item 4"),
