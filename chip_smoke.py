@@ -12,6 +12,16 @@ Phases, each printing one JSON line:
                the paths give it and at edge cases; kth_free also against
                the sort oracle.  Kernel / device / plain / library times
                and the bound, one line per kernel
+  kernel_flash the flash attention kernel against its blocked plain version
+               and the plain-softmax oracle (atol 3e-5 in f32, 3e-2 in
+               bf16, and bf16 also within 2 bf16 ulps of |ref| + 1e-4) at
+               the serving path's shape (q [4, 4096, 32, 64], k/v
+               [4, 4096, 4, 64], causal, bf16 and f32), the reference's
+               test shapes (causal and not, sk != sq, MQA, head dims
+               32/64/128/256, f32 and bf16) and strided views (fused QKV,
+               head-major); kernel / device / plain /
+               ``F.scaled_dot_product_attention`` times and the bound, and
+               one b = 1, s = 32,768 call with its last rows checked
   paper        the paper's NPB K sweep; the paper-claim assertions hold
   campaign     the documented campaign: 10,000 Poisson NPB jobs at rate
                0.5, K in {0, .05, .1, .2, .3} x 4 seeds, stragglers and
@@ -31,16 +41,27 @@ Phases, each printing one JSON line:
                ``ProfileStore`` (modes paper, fastest, first_free; K = 0.10;
                Skylake degraded x3 after job 14), each job executed on the
                card at ``smoke`` size and verified; energy and makespan
+  serve        tinyllama-1.1b at full width (22 x 2048, bf16, seeded
+               weights): a 4 x 4,096-token ``prefill`` launches the flash
+               kernel once per layer and agrees with its ``force="torch"``
+               run within ``SERVE_LOGIT_BAND``; a 1,024-token prefill
+               launches it 0 times; ``launch.serve.main`` at its defaults
+               (batch 4, 32 tokens, max-seq 128); tokens/s, ms per decode
+               step, the decode loop's device idle share, peak memory
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
 code is non-zero and no result line is printed.  Without a CUDA device
 the script exits non-zero before doing anything.
+
+``--only PHASE,...`` runs ``build`` and the named phases alone, for
+debugging on the card, and prints no result lines.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -51,10 +72,11 @@ import warnings
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-#: H100 SXM published rates: HBM bytes/s and
-#: non-tensor-core float32 operations/s.
+#: H100 SXM published rates: HBM bytes/s, non-tensor-core float32
+#: operations/s and dense bf16 tensor-core operations/s.
 HBM_BYTES_PER_S = 3.35e12
 VECTOR_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
 BIG = 1e30
 CAMPAIGN_KS = (0.0, 0.05, 0.1, 0.2, 0.3)
 CAMPAIGN_SEEDS = (0, 1, 2, 3)
@@ -113,9 +135,10 @@ def _device_us_per_call(fn, names, iters: int = 200):
     return sum(times) / iters if times else None
 
 
-def _device_busy_us(fn):
+def _device_busy_us(fn, count=False):
     """Device time (µs) of every CUDA kernel, memset and copy one call of
-    ``fn`` makes, from a profiler trace (None if the trace is empty)."""
+    ``fn`` makes, from a profiler trace (None if the trace is empty);
+    with ``count``, also the number of those device operations."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -124,14 +147,17 @@ def _device_busy_us(fn):
         torch.cuda.synchronize()
     times = [e.device_time_total for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(times) if times else None
+    busy = sum(times) if times else None
+    return (busy, len(times)) if count else busy
 
 
-def _bound(bytes_moved: float, ops: float) -> dict:
+def _bound(bytes_moved: float, ops: float,
+           ops_per_s: float = VECTOR_OPS_PER_S) -> dict:
     """The least time for the work: bytes over the HBM rate against
-    operations over the vector rate, whichever is larger."""
+    operations over ``ops_per_s`` (the f32 vector rate unless given),
+    whichever is larger."""
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / VECTOR_OPS_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
     return dict(bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 bytes=bytes_moved, ops=ops)
@@ -147,7 +173,8 @@ def phase_build() -> dict:
                                   capture_output=True, text=True,
                                   timeout=60).stdout.strip().splitlines()[-1]
     emit("build", seconds=seconds, kernels=sorted(report),
-         ptxas={k: [ln for ln in v["log"].splitlines() if "Used" in ln]
+         ptxas={k: [ln for ln in v["log"].splitlines()
+                    if "Used" in ln or "spill" in ln]
                 for k, v in report.items()},
          python=sys.version.split()[0], torch=torch.__version__,
          torch_cuda=torch.version.cuda, nvcc=nvcc_version,
@@ -395,6 +422,183 @@ def phase_kernel_stencil() -> dict:
     return res
 
 
+#: the serving path's attention shape: b, sq, sk, h, kv, hd (tinyllama
+#: prefill of 4 x 4,096 tokens)
+FLASH_PATH = (4, 4096, 4096, 32, 4, 64)
+#: the reference's kernel test shapes (tests/test_kernels.py) plus head
+#: dim 256 and a ragged rectangle: b, sq, sk, h, kv, hd
+FLASH_CASES = ((2, 256, 256, 8, 2, 64), (1, 256, 256, 4, 4, 128),
+               (2, 128, 384, 4, 1, 64), (1, 512, 512, 2, 2, 32),
+               (1, 256, 256, 4, 2, 64), (1, 256, 256, 4, 4, 256),
+               (1, 100, 70, 4, 2, 64))
+FLASH_ATOL = {"float32": 3e-5, "bfloat16": 3e-2}
+
+
+def _flash_inputs(shape, dtype, gen):
+    import torch
+    b, sq, sk, h, kv, hd = shape
+    dev = torch.device("cuda")
+    return tuple(torch.randn(s, generator=gen, device=dev).to(dtype)
+                 for s in ((b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hd)))
+
+
+def _bf16_ulps(out, ref):
+    """Worst |out - ref| over an elementwise bound of 2 bf16 ulps of |ref|
+    plus 1e-4 (both sides f32 inside, each rounded once to bf16, so they
+    may land one ulp apart), and that bound's median over the median
+    |ref|."""
+    import torch
+    a = ref.float().abs()
+    _, e = torch.frexp(a)                  # |ref| in [2^(e-1), 2^e)
+    bound = torch.where(a > 0, torch.ldexp(torch.ones_like(a), e - 7),
+                        torch.zeros_like(a)) + 1e-4
+    worst = float(((out.float() - ref.float()).abs() / bound).max())
+    return worst, float(bound.median() / a.median())
+
+
+def _attention_work(shape, causal, itemsize):
+    """(bytes, operations) of one attention call: q, k, v read once and
+    the output written once; 4 hd operations per (query, key) pair the
+    mask keeps (the two products)."""
+    b, sq, sk, h, kv, hd = shape
+    pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
+             else sq * sk)
+    return (itemsize * b * hd * (2 * sq * h + 2 * sk * kv),
+            4 * hd * b * h * pairs)
+
+
+def _sdpa(q, k, v, causal):
+    """The library yardstick: ``F.scaled_dot_product_attention`` on its
+    flash backend, in its own [b, h, s, hd] layout (the port never calls
+    it)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def call():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal,
+                                                  enable_gqa=True)
+    return call
+
+
+def phase_kernel_flash() -> dict:
+    """The CUDA flash attention kernel against its blocked plain version
+    and the plain-softmax oracle, in f32 and bf16.  bf16 outputs are also
+    held to 2 bf16 ulps of |ref| (``_bf16_ulps``), which is far tighter
+    than atol 3e-2 where |ref| is small (late causal rows)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention,
+                                                     flash_attention_cuda,
+                                                     plain_attention)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    errs = []
+
+    def compare(shape, dtype, causal, block, qkv=None):
+        q, k, v = qkv or _flash_inputs(shape, dtype, gen)
+        out = flash_attention_cuda(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        plain = flash_attention(q, k, v, causal=causal, block_q=block,
+                                block_k=block, force="torch")
+        ref = attention_ref(q, k, v, causal=causal)
+        e_plain = float((out.float() - plain.float()).abs().max())
+        e_ref = float((out.float() - ref.float()).abs().max())
+        name = str(dtype).split(".")[-1]
+        row = dict(shape=list(shape), dtype=name, causal=causal,
+                   strided=qkv is not None, vs_plain=e_plain, vs_ref=e_ref)
+        check(out.dtype == dtype and out.shape == q.shape,
+              f"flash kernel output {out.dtype} {tuple(out.shape)}")
+        check(e_plain <= FLASH_ATOL[name] and e_ref <= FLASH_ATOL[name],
+              f"flash kernel beyond atol {FLASH_ATOL[name]} at {shape} "
+              f"{name} causal={causal}: {e_plain} vs plain, {e_ref} vs ref")
+        if dtype == torch.bfloat16:
+            u_ref, ratio = _bf16_ulps(out, ref)
+            ulps = max(_bf16_ulps(out, plain)[0], u_ref)
+            row.update(ulp_bound_used=ulps, ulp_bound_over_median_ref=ratio,
+                       median_abs_ref=float(ref.float().abs().median()))
+            check(ulps <= 1.0, f"flash kernel beyond 2 bf16 ulps of |ref| "
+                  f"+ 1e-4 at {shape} causal={causal}: {ulps} of the bound")
+        errs.append(row)
+        return q, k, v, out, e_plain
+
+    for shape in FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                compare(shape, dtype, causal, 128)
+    # q, k, v read in place through their strides: views of one fused
+    # [b, s, h + 2 kv, hd] projection, and head-major [b, h, s, hd]
+    # tensors seen as [b, s, h, hd]; equal bit for bit to the kernel on
+    # contiguous copies
+    b, s, _, h, kv, hd = shape = (2, 512, 512, 8, 2, 64)
+    fused = torch.randn((b, s, h + 2 * kv, hd), generator=gen,
+                        device="cuda")
+    views = {"fused": (fused[:, :, :h], fused[:, :, h:h + kv],
+                       fused[:, :, h + kv:]),
+             "head_major": tuple(
+                 torch.randn((b, n, s, hd), generator=gen,
+                             device="cuda").transpose(1, 2)
+                 for n in (h, kv, kv))}
+    for layout, qkv in views.items():
+        check(not any(t.is_contiguous() for t in qkv), f"{layout} views")
+        for causal in (True, False):
+            out = compare(shape, torch.float32, causal, 128, qkv)[3]
+            copy = flash_attention_cuda(*(t.contiguous() for t in qkv),
+                                        causal=causal)
+            check(torch.equal(out, copy), f"flash kernel on {layout} views "
+                  f"differs from its run on contiguous copies")
+    del fused, views
+    compare(FLASH_PATH, torch.float32, True, 512)
+    q, k, v, out, path_err = compare(FLASH_PATH, torch.bfloat16, True, 512)
+
+    fn = lambda: flash_attention_cuda(q, k, v, causal=True)  # noqa: E731
+    lib = _sdpa(q, k, v, True)
+    lib_err = float((lib().transpose(1, 2).float() - out.float()).abs().max())
+    check(lib_err <= FLASH_ATOL["bfloat16"],
+          f"the SDPA yardstick computes the same attention ({lib_err})")
+    nbytes, ops = _attention_work(FLASH_PATH, True, 2)
+    res = dict(shape=dict(q=list(q.shape), k=list(k.shape), dtype="bfloat16",
+                          causal=True),
+               kernel_us=cuda_ms(fn, 20) * 1e3,
+               kernel_device_us=_device_us_per_call(fn, ("flash_fwd",), 10),
+               plain_us=cuda_ms(lambda: flash_attention(
+                   q, k, v, causal=True, block_q=512, block_k=512,
+                   force="torch"), 3, warmup=1) * 1e3,
+               library_us=cuda_ms(lib, 20) * 1e3,
+               library="F.scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True), flash backend, [b, h, s, hd]",
+               library_max_abs_diff=lib_err,
+               max_abs_err=path_err, cases=errs)
+    res.update(_bound(nbytes, ops, BF16_TENSOR_OPS_PER_S))
+    del q, k, v, out
+
+    # one sequence of the reference's prefill_32k shape
+    long = (1, 32768, 32768, 32, 4, 64)
+    q, k, v = _flash_inputs(long, torch.bfloat16, gen)
+    fn = lambda: flash_attention_cuda(q, k, v, causal=True)  # noqa: E731
+    out = fn()
+    tail = torch.arange(32768 - 64, 32768, device=q.device)
+    last = plain_attention(q[:, -64:], k, v, causal=True, q_positions=tail)
+    long_err = float((out[:, -64:].float() - last.float()).abs().max())
+    long_ulps, long_ratio = _bf16_ulps(out[:, -64:], last)
+    check(long_err <= FLASH_ATOL["bfloat16"] and long_ulps <= 1.0,
+          f"flash kernel at s = 32,768: last rows off by {long_err}, "
+          f"{long_ulps} of 2 bf16 ulps of |ref| + 1e-4")
+    nbytes, ops = _attention_work(long, True, 2)
+    res["long"] = dict(shape=list(long), kernel_us=cuda_ms(fn, 2, 1) * 1e3,
+                       library_us=cuda_ms(_sdpa(q, k, v, True), 3, 1) * 1e3,
+                       last_rows_max_abs_err=long_err,
+                       last_rows_ulp_bound_used=long_ulps,
+                       last_rows_ulp_bound_over_median_ref=long_ratio,
+                       last_rows_median_abs_ref=float(
+                           last.float().abs().median()),
+                       bound_us=_bound(nbytes, ops, BF16_TENSOR_OPS_PER_S)[
+                           "bound_ms"] * 1e3)
+    emit("kernel", name="flash_attention", **res)
+    return res
+
+
 def phase_paper() -> None:
     import numpy as np
     import torch
@@ -592,11 +796,13 @@ def phase_cross_device() -> None:
 def _wrappers() -> dict:
     """Every kernel wrapper of the port, by kernel name."""
     from repro_torch.kernels.ep import ep_pairs_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.is_hist import key_histogram_cuda
     from repro_torch.kernels.kth_free import kth_free_cuda
     from repro_torch.kernels.stencil3d import stencil7_cuda
     return {"kth_free": kth_free_cuda, "ep": ep_pairs_cuda,
-            "is_hist": key_histogram_cuda, "stencil7": stencil7_cuda}
+            "is_hist": key_histogram_cuda, "stencil7": stencil7_cuda,
+            "flash_attention": flash_attention_cuda}
 
 
 def _expected_launches(name, size):
@@ -801,23 +1007,212 @@ def phase_executed_campaign() -> None:
          paper_vs_fastest_makespan=(m_p - m_f) / m_f)
 
 
-def main() -> int:
+#: |logits(kernel prefill) - logits(force="torch" prefill)| at full width
+#: (PERF.md "Parity bands"): in bf16, about six bf16 steps at the largest
+#: logit (the hidden state is bf16, so one-ulp differences in the
+#: attention outputs carry through 22 layers); in f32, the kernel's and
+#: the plain version's summation orders alone
+SERVE_LOGIT_BAND = {"bfloat16": 0.1, "float32": 1e-3}
+SERVE_ARCH = "tinyllama-1.1b"
+
+
+def _decode_loop_stats(api, params, logits, steps):
+    """Device idle share of ``steps`` greedy decode steps (1 - device busy
+    time from the profiler / wall of the same loop unprofiled), device
+    operations per step, and the host synchronisations of the loop at two
+    lengths (which must not grow with the steps)."""
     import torch
+    from repro_torch.launch.serve import greedy_decode
+    cache = api.init_decode_cache(logits.shape[0], steps + 1)
+
+    def run(n=steps):
+        return greedy_decode(api, params, cache, logits, 0, n)
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us, n_ops = _device_busy_us(run, count=True)
+    _sync_count(lambda: run(2))       # the detector's first call (one sync)
+    syncs = {n: _sync_count(lambda: run(n)) for n in (4, 8)}
+    check(syncs[4] == syncs[8],
+          f"host syncs change with the decode steps: {syncs}")
+    return dict(decode_wall_us=wall_us, decode_device_busy_us=busy_us,
+                decode_device_idle_share=(None if busy_us is None
+                                          else 1.0 - busy_us / wall_us),
+                decode_device_ops_per_step=n_ops / steps,
+                decode_host_syncs=syncs)
+
+
+def _prefill_pair(api, params, batch, counted, wrappers):
+    """The kernel prefill (flash launched once per layer, nothing else)
+    and its ``force="torch"`` run (nothing launched): logits, seconds and
+    their max abs difference, held to ``SERVE_LOGIT_BAND``."""
+    import torch
+    cfg = api.cfg
+    logits, t_kernel, launches = counted(lambda: api.prefill(params, batch))
+    check(launches == {**dict.fromkeys(wrappers, 0),
+                       "flash_attention": cfg.n_layers},
+          f"{cfg.dtype} prefill launches {launches}, expected "
+          f"{cfg.n_layers} flash_attention")
+    plain, t_plain, plain_launches = counted(
+        lambda: api.prefill(params, batch, force="torch"))
+    check(not any(plain_launches.values()),
+          f"force='torch' launched {plain_launches}")
+    check(logits.shape == (batch["tokens"].shape[0], cfg.vocab_size)
+          and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()), "prefill logits")
+    diff = float((logits - plain).abs().max())
+    check(diff <= SERVE_LOGIT_BAND[cfg.dtype],
+          f"{cfg.dtype} kernel vs plain prefill logits differ by {diff} "
+          f"(band {SERVE_LOGIT_BAND[cfg.dtype]})")
+    return logits, plain, t_kernel, t_plain, launches, diff
+
+
+def phase_serve(counters: dict) -> None:
+    """tinyllama-1.1b at full width on the card: the main path of this
+    slice.  Every kernel count is set to 0 just before each run and read
+    just after; the 4 x 4,096 prefill's counts go to ``counters``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = _wrappers()
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {
+            n: w.launches for n, w in wrappers.items()}
+
+    cfg = get_config(SERVE_ARCH)
+    api = build_model(cfg)
+    t0 = time.perf_counter()
+    params = api.init_params(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 4096), generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens}
+    api.prefill(params, batch)                            # warm up
+    logits, plain, t_prefill, t_plain, launches, diff = _prefill_pair(
+        api, params, batch, counted, wrappers)
+    counters["flash_attention"] = launches["flash_attention"]
+    top2 = plain.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    clear = margin > SERVE_LOGIT_BAND[cfg.dtype]
+    same = logits.argmax(-1) == plain.argmax(-1)
+    check(bool(same[clear].all()), "argmax differs where the top-2 margin "
+          f"exceeds the band: margins {margin.tolist()}")
+    short, t_short, launches = counted(
+        lambda: api.prefill(params, {"tokens": tokens[:, :1024]}))
+    check(not any(launches.values()),
+          f"1,024-token prefill launched {launches} (plain_attention)")
+    check(bool(torch.isfinite(short).all()), "1,024-token prefill logits")
+
+    res, t_main, launches = counted(lambda: serve.main(["--arch", SERVE_ARCH]))
+    check(not any(launches.values()), f"decode launched {launches}")
+    check(res["steps"] == 31 and bool(torch.isfinite(res["logits"]).all()),
+          "serve.main decodes 31 timed steps with finite logits")
+    idle = _decode_loop_stats(api, params, logits, 31)
+    peak = torch.cuda.max_memory_allocated()
+
+    # the same prefill in f32: kernel and plain version within f32 noise
+    api32 = build_model(cfg.with_overrides(dtype="float32"))
+    params32 = api32.init_params(0)
+    *_, t32, t32_plain, _, diff32 = _prefill_pair(api32, params32, batch,
+                                                  counted, wrappers)
+    del params32
+    emit("serve", arch=SERVE_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
+         dtype=cfg.dtype, params=n_params, init_s=init_s,
+         prefill_shape=list(tokens.shape), prefill_s=t_prefill,
+         prefill_tokens_per_s=tokens.numel() / t_prefill,
+         prefill_flash_launches=counters["flash_attention"],
+         prefill_plain_s=t_plain,
+         prefill_plain_tokens_per_s=tokens.numel() / t_plain,
+         logits_max_abs_diff=diff,
+         logit_band=SERVE_LOGIT_BAND[cfg.dtype],
+         logits_abs_max=float(plain.abs().max()),
+         top2_margin=margin.tolist(), argmax_equal=same.tolist(),
+         short_prefill_s=t_short, short_prefill_flash_launches=0,
+         decode_batch=4, decode_steps=res["steps"],
+         decode_tokens_per_s=res["tokens_per_s"],
+         decode_ms_per_step=res["ms_per_step"], serve_main_s=t_main, **idle,
+         max_memory_allocated=peak, f32_prefill_s=t32,
+         f32_prefill_plain_s=t32_plain, f32_logits_max_abs_diff=diff32,
+         f32_logit_band=SERVE_LOGIT_BAND["float32"],
+         allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+         allow_bf16_reduced_precision_reduction=(
+             torch.backends.cuda.matmul
+             .allow_bf16_reduced_precision_reduction),
+         nvidia_smi=nvidia_smi())
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _phases(counters: dict) -> dict:
+    """The phases after ``build``, by name, in the order they run; the
+    main-path phases add their kernels' launch counts to ``counters``."""
+    return {
+        "kernel": lambda: {"kth_free": phase_kernel(),
+                           "ep": phase_kernel_ep(),
+                           "is_hist": phase_kernel_is(),
+                           "stencil7": phase_kernel_stencil()},
+        "kernel_flash": phase_kernel_flash,
+        "paper": phase_paper,
+        "campaign": lambda: phase_campaign(counters),
+        "cross_device": phase_cross_device,
+        "workloads": lambda: phase_workloads(counters),
+        "executed_campaign": phase_executed_campaign,
+        "serve": lambda: phase_serve(counters),
+    }
+
+
+def main(argv=None) -> int:
+    import torch
+    names = list(_phases({}))
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", type=lambda s: s.split(","), default=None,
+                    help="comma-separated phases of " + ",".join(names) +
+                         " to run after build (no result lines)")
+    args = ap.parse_args(argv)
+    only = args.only
+    if only is not None and set(only) - set(names):
+        ap.error(f"unknown phases {sorted(set(only) - set(names))}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on "
               "the card", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
     phase_build()
-    kern = {"kth_free": phase_kernel(), "ep": phase_kernel_ep(),
-            "is_hist": phase_kernel_is(),
-            "stencil7": phase_kernel_stencil()}
-    phase_paper()
     counters: dict = {}
-    camp = phase_campaign(counters)
-    phase_cross_device()
-    phase_workloads(counters)
-    phase_executed_campaign()
+    results = {name: fn() for name, fn in _phases(counters).items()
+               if only is None or name in only}
+    if only is not None:
+        emit("done", seconds=time.perf_counter() - t_start, only=only)
+        return 0
+    kern = {**results["kernel"], "flash_attention": results["kernel_flash"]}
     meta = {  # name: (source, replaced TPU kernel, how it is checked)
         "kth_free": ("src/repro_torch/kernels/kth_free/csrc/kth_free.cu",
                      "src/repro/kernels/kth_free/kernel.py:81",
@@ -831,6 +1226,11 @@ def main() -> int:
         "stencil7": ("src/repro_torch/kernels/stencil3d/csrc/stencil7.cu",
                      "src/repro/kernels/stencil3d/kernel.py:51",
                      "torch.equal vs plain"),
+        "flash_attention": (
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:68",
+            "vs blocked plain and attention_ref: atol 3e-5 f32, 3e-2 bf16 "
+            "and 2 bf16 ulps of |ref| + 1e-4"),
     }
     kernels = []
     for name, (source, replaces, how) in meta.items():
@@ -849,7 +1249,7 @@ def main() -> int:
                            else k["library_us"] / 1e3),
             "library": k["library"], "check": how})
     emit("done", seconds=time.perf_counter() - t_start,
-         campaign_ms_per_step=camp["ms_per_step"])
+         campaign_ms_per_step=results["campaign"]["ms_per_step"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

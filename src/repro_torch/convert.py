@@ -1,9 +1,10 @@
 """Carry the reference's state across to the port.
 
 The scheduler has no trained weights: its state is the workload tables
-and the policy leaves.  Both converters are duck-typed (any object with
-the reference's fields as numpy arrays or floats will do), so the port
-never imports the reference package.
+and the policy leaves.  The LM stack's state is its parameter pytree.
+Every converter is duck-typed (any object with the reference's fields,
+or any dict of the reference's keys, holding numpy arrays or floats will
+do), so the port never imports the reference package.
 """
 
 from __future__ import annotations
@@ -11,9 +12,11 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.engine import Workload
 from repro_torch.core.policy import Policy
+from repro_torch.models.transformer import group_size, n_groups
 
 _ARRAY_FIELDS = ("prog", "arrival", "k_job", "n_req", "T_true", "C_true",
                  "E_true", "T_pred", "C_pred", "n_nodes")
@@ -39,3 +42,32 @@ def policy_from_reference(p) -> Policy:
         v = np.array(kw[leaf])
         kw[leaf] = float(v) if v.ndim == 0 else v
     return Policy(**kw)
+
+
+def _tensor(a):
+    """A numpy array (bf16 ones from ``ml_dtypes`` included) as a tensor
+    with the same values and dtype."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def params_from_reference(cfg, tree, device=None):
+    """The port's LM parameters with exactly the values of the
+    reference's pytree ``tree`` (numpy arrays): ``embed/table`` [V, d],
+    ``head/w`` [V, d] (absent when tied), ``final_norm`` and the stacked
+    ``groups/pos{j}/...`` leaves [n_groups, ...], unstacked into the
+    port's per-layer list (layer ``gi * group_size + j``)."""
+    def conv(node, index=None):
+        if isinstance(node, dict):
+            return {k: conv(v, index) for k, v in node.items()}
+        a = np.asarray(node)
+        return _tensor(a if index is None else a[index]).to(device)
+
+    groups = tree["groups"]
+    g = group_size(cfg)
+    layers = [conv(groups[f"pos{j}"], gi) for gi in range(n_groups(cfg))
+              for j in range(g)]
+    return {"embed": conv(tree["embed"]), "head": conv(tree.get("head", {})),
+            "final_norm": conv(tree["final_norm"]), "layers": layers}

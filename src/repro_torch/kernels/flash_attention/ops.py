@@ -1,0 +1,30 @@
+"""Dispatch for the flash attention kernel (modes in
+``repro_torch.kernels.modes``: ``cuda`` for CUDA tensors, ``torch`` for
+CPU ones).
+
+The ``torch`` mode is the blocked online softmax of ``ref.py``: the
+triangular schedule for self-causal inputs (sq == sk), which is equal bit
+for bit to the rectangular one the reference's ``ops.py`` falls back to,
+and the rectangular schedule otherwise.  ``block_q`` / ``block_k`` are its
+tile sizes; the CUDA kernel has tiles of its own and ignores them.
+"""
+
+from __future__ import annotations
+
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.ref import (blocked_attention,
+                                                     blocked_attention_tri)
+from repro_torch.kernels.modes import pick_mode
+
+
+def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
+                    block_k: int = 128, force: str | None = None):
+    """q: [b, sq, h, hd]; k, v: [b, sk, kv, hd].  Returns [b, sq, h, hd]
+    in q's dtype.  ``force``: None (by device) | 'cuda' | 'torch'."""
+    if pick_mode("flash_attention", force, q) == "cuda":
+        return flash_attention_cuda(q, k, v, causal=causal)
+    if causal and q.shape[1] == k.shape[1] and block_q == block_k:
+        return blocked_attention_tri(q, k, v, block_q=block_q,
+                                     block_k=block_k)
+    return blocked_attention(q, k, v, causal=causal, block_q=block_q,
+                             block_k=block_k)

@@ -1,4 +1,5 @@
-"""The dispatch modes shared by the NPB kernels (ep, is_hist, stencil3d).
+"""The dispatch modes shared by the NPB kernels (ep, is_hist, stencil3d)
+and flash attention.
 
   cuda   — the hand-written CUDA kernel (CUDA tensors only; raises on others)
   torch  — the plain torch version (any device)

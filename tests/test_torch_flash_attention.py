@@ -1,0 +1,175 @@
+"""Port parity: the flash attention kernel's plain versions
+(``repro_torch.kernels.flash_attention``) against the reference's Pallas
+kernel (interpret mode) and its oracle, at the shapes of
+``tests/test_kernels.py``, and the kernel's dispatch and wrapper checks.
+
+On the CPU the port's dispatch runs the blocked plain version; the CUDA
+kernel is held against it on the card (the ``gpu`` tests below, and
+``chip_smoke.py``'s ``kernel_flash`` phase).  Bands: the reference's own
+kernel contract, atol 3e-5 in f32 and 3e-2 in bf16 (the two sides sum the
+same f32 products in other orders and tile sizes; bf16 outputs are one
+rounding of those sums).  The triangular and rectangular schedules of the
+port agree exactly (a wholly masked tile adds exactly nothing).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention import attention_ref as j_attention_ref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention_bhsd  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import (HEAD_DIMS,  # noqa: E402
+                                                 attention_ref,
+                                                 blocked_attention,
+                                                 blocked_attention_tri,
+                                                 flash_attention,
+                                                 flash_attention_cuda,
+                                                 plain_attention)
+from repro_torch.models import attention as port_attention  # noqa: E402
+
+# the reference's sweep (tests/test_kernels.py): b, sq, sk, h, kv, hd, bq, bk
+SWEEP = [(2, 256, 256, 8, 2, 64, 128, 128),
+         (1, 256, 256, 4, 4, 128, 64, 128),
+         (2, 128, 384, 4, 1, 64, 128, 128),     # MQA, rectangular
+         (1, 512, 512, 2, 2, 32, 128, 256)]
+ATOL = {"float32": 3e-5, "bfloat16": 3e-2}
+
+
+def _qkv(b, sq, sk, h, kv, hd, seed, dtype="float32"):
+    """Standard-normal q, k, v from ``seed`` as (numpy f32, port tensors,
+    reference arrays), the last two rounded to ``dtype`` alike."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hd))]
+    port = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+    ref = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrs]
+    return port, ref
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,bq,bk", SWEEP)
+def test_blocked_matches_reference_kernel(b, sq, sk, h, kv, hd, bq, bk,
+                                          causal):
+    (q, k, v), (jq, jk, jv) = _qkv(b, sq, sk, h, kv, hd, 0)
+    out = flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
+    ref = flash_attention_bhsd(jq, jk, jv, causal=causal, block_q=bq,
+                               block_k=bk, interpret=True)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=3e-5)
+    np.testing.assert_allclose(
+        _np(attention_ref(q, k, v, causal=causal)),
+        _np(j_attention_ref(jq, jk, jv, causal=causal)), atol=3e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dtypes_match_reference(dtype):
+    (q, k, v), (jq, jk, jv) = _qkv(1, 256, 256, 4, 2, 64, 1, dtype)
+    out = flash_attention(q, k, v, causal=True)
+    ref = flash_attention_bhsd(jq, jk, jv, causal=True, interpret=True)
+    assert out.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=ATOL[dtype])
+    np.testing.assert_allclose(_np(out), _np(j_attention_ref(jq, jk, jv)),
+                               atol=ATOL[dtype])
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,block", [
+    (2, 512, 4, 2, 32, 128), (1, 1024, 8, 1, 64, 256), (1, 256, 2, 2, 128, 64)])
+def test_triangular_and_rectangular_schedules_agree_exactly(b, s, h, kv, hd,
+                                                            block):
+    (q, k, v), _ = _qkv(b, s, s, h, kv, hd, 2)
+    tri = blocked_attention_tri(q, k, v, block_q=block, block_k=block)
+    rect = blocked_attention(q, k, v, causal=True, block_q=block,
+                             block_k=block)
+    assert torch.equal(tri, rect)
+    torch.testing.assert_close(tri, plain_attention(q, k, v, causal=True),
+                               atol=3e-5, rtol=0)
+
+
+def test_top_left_causal_mask_when_keys_outnumber_queries():
+    """Causal rectangles count both positions from 0 (query i sees keys
+    0..i), as the reference's kernel does, not bottom-right aligned."""
+    (q, k, v), (jq, jk, jv) = _qkv(1, 128, 384, 2, 1, 32, 3)
+    out = flash_attention(q, k, v, causal=True)
+    ref = flash_attention_bhsd(jq, jk, jv, causal=True, interpret=True)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=3e-5)
+    first = plain_attention(q[:, :1], k[:, :1], v[:, :1], causal=False)
+    torch.testing.assert_close(out[:, :1], first, atol=1e-6, rtol=0)
+
+
+def test_model_module_reexports_the_kernel_package_versions():
+    assert port_attention.blocked_attention is blocked_attention
+    assert port_attention.blocked_attention_tri is blocked_attention_tri
+    assert port_attention.plain_attention is plain_attention
+
+
+def test_kernel_source_is_built_with_the_others():
+    assert _build.SOURCES["flash_attention"].name == "flash_attention.cu"
+    assert _build.SOURCES["flash_attention"].exists()
+    assert HEAD_DIMS == (32, 64, 128, 256)
+
+
+def test_cuda_mode_on_cpu_tensors_raises():
+    (q, k, v), _ = _qkv(1, 64, 64, 2, 1, 32, 4)
+    before = flash_attention_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention(q, k, v, force="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention_cuda(q, k, v)
+    with pytest.raises(ValueError, match="unknown flash_attention mode"):
+        flash_attention(q, k, v, force="pallas")
+    assert flash_attention_cuda.launches == before
+
+
+def test_plain_version_refuses_ragged_blocks():
+    (q, k, v), _ = _qkv(1, 96, 96, 2, 1, 32, 5)
+    with pytest.raises(ValueError, match="block"):
+        blocked_attention(q, k, v, causal=True, block_q=64, block_k=64)
+
+
+# ----------------------------------------------------------------- on card
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd", [
+    (2, 256, 256, 8, 2, 64), (1, 256, 256, 4, 4, 128), (2, 128, 384, 4, 1, 64),
+    (1, 512, 512, 2, 2, 32), (1, 256, 256, 4, 4, 256), (1, 100, 70, 4, 2, 64)])
+def test_kernel_matches_plain_on_card(b, sq, sk, h, kv, hd, causal, dtype):
+    dev = _card()
+    (q, k, v), _ = _qkv(b, sq, sk, h, kv, hd, 6, dtype)
+    q, k, v = q.to(dev), k.to(dev), v.to(dev)
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ref = attention_ref(q, k, v, causal=causal)
+    assert out.dtype == q.dtype
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.gpu
+def test_kernel_reads_strided_inputs_on_card():
+    """q, k, v as views of one fused projection (no copies)."""
+    dev = _card()
+    rng = np.random.default_rng(7)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (2, 256, 8 + 2 + 2, 64)).astype(np.float32)).to(dev)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    out = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, attention_ref(q, k, v), atol=3e-5,
+                               rtol=0)

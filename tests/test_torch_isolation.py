@@ -87,6 +87,82 @@ def test_workloads_default_to_cuda_and_never_fall_back(monkeypatch):
     assert ok
 
 
+def test_models_default_to_cuda_and_never_fall_back(monkeypatch):
+    from repro_torch.configs import get_config, smoke_reduce
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import init_decode_cache, init_params
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for arch in ("tinyllama-1.1b", "qwen2-1.5b", "gemma-7b",
+                 "internlm2-20b"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_model(get_config(arch))
+    small = smoke_reduce(get_config("tinyllama-1.1b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(small, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_decode_cache(small, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "tinyllama-1.1b", "--reduced"])
+    api = build_model(smoke_reduce(get_config("tinyllama-1.1b")),
+                      device="cpu")
+    assert api.device.type == "cpu"
+    assert api.init_params(0)["embed"]["table"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("arch,item", [
+    ("llama4-scout-17b-a16e", "item 14c"), ("moonshot-v1-16b-a3b", "item 14c"),
+    ("jamba-v0.1-52b", "item 14c"), ("mamba2-780m", "item 14b"),
+    ("whisper-medium", "item 14d"), ("phi-3-vision-4.2b", "item 14d")])
+def test_unported_model_families_raise(arch, item):
+    from repro_torch.configs import get_config, smoke_reduce
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import init_params, prefill
+    cfg = get_config(arch)
+    for c in (cfg, smoke_reduce(cfg)):
+        with pytest.raises(NotImplementedError, match=item):
+            build_model(c, device="cpu")
+        with pytest.raises(NotImplementedError, match=item):
+            init_params(c)
+        with pytest.raises(NotImplementedError, match=item):
+            prefill(c, {}, {"tokens": None})
+
+
+def test_params_from_reference_imports_nothing_of_the_reference():
+    """The parameter converter is duck-typed over plain dicts of numpy
+    arrays: converting a reference-shaped tree loads no JAX and no
+    ``repro`` module."""
+    code = """
+import sys
+import numpy as np
+from repro_torch.configs import get_config, smoke_reduce
+from repro_torch.convert import params_from_reference
+cfg = smoke_reduce(get_config("qwen2-1.5b"))
+d, h, kv, hd, f, V, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                         cfg.resolved_head_dim(), cfg.d_ff, cfg.vocab_size,
+                         cfg.n_layers)
+z = lambda *s: np.arange(np.prod(s), dtype=np.float32).reshape(s)
+tree = {"embed": {"table": z(V, d)}, "head": {},
+        "final_norm": {"scale": z(d)},
+        "groups": {"pos0": {
+            "norm1": {"scale": z(L, d)}, "norm2": {"scale": z(L, d)},
+            "attn": {"wq": z(L, d, h, hd), "wk": z(L, d, kv, hd),
+                     "wv": z(L, d, kv, hd), "wo": z(L, h, hd, d),
+                     "bq": z(L, h, hd), "bk": z(L, kv, hd),
+                     "bv": z(L, kv, hd)},
+            "mlp": {"wi": z(L, d, f), "wu": z(L, d, f), "wo": z(L, f, d)}}}}
+p = params_from_reference(cfg, tree)
+assert len(p["layers"]) == L
+assert (p["layers"][2]["attn"]["wq"].numpy() == tree["groups"]["pos0"]["attn"]["wq"][2]).all()
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+"""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 @pytest.mark.parametrize("kwargs,item", [
     ({"queue": "easy_backfill"}, "item 4"),
     ({"policy": "easy_queue_aware"}, "item 4"),

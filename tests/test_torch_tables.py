@@ -51,7 +51,12 @@ def test_systems_equal():
 
 
 def test_npb_tables_and_phase_split_equal():
-    assert r_wm.NPB_NODES == t_wm.NPB_NODES
+    # The reference's dvfs_npb_workload registers its virtual "host@phi"
+    # systems into the shared NPB_NODES, so a test that ran it earlier in
+    # this process leaves them there; the physical entries are the table.
+    physical = {p: {s: n for s, n in row.items() if "@" not in s}
+                for p, row in r_wm.NPB_NODES.items()}
+    assert physical == t_wm.NPB_NODES
     assert {k: dataclasses.asdict(v) for k, v in r_wm.NPB_PROFILES.items()} \
         == {k: dataclasses.asdict(v) for k, v in t_wm.NPB_PROFILES.items()}
     progs = ("BT", "EP", "IS", "LU", "SP")
