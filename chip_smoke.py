@@ -22,6 +22,15 @@ Phases, each printing one JSON line:
                head-major); kernel / device / plain /
                ``F.scaled_dot_product_attention`` times and the bound, and
                one b = 1, s = 32,768 call with its last rows checked
+  kernel_ssd   the SSD chunk-scan kernel against its plain version: the
+               reference's test shapes (atol 2e-4, f32 and bf16), its
+               chunk-invariance case (16 vs 64), the mamba2-780m path shape
+               (x [4, 4096, 48, 64], B/C [4, 4096, 1, 128], chunk 256,
+               bf16 and f32, as strided model-layout views; within 2e-4 +
+               1e-4 max |plain|, and bit-equal to its run on contiguous
+               copies) and one b = 1, l = 32,768 call; kernel / device /
+               plain times and the bound (no single PyTorch call computes
+               an SSD scan)
   paper        the paper's NPB K sweep; the paper-claim assertions hold
   campaign     the documented campaign: 10,000 Poisson NPB jobs at rate
                0.5, K in {0, .05, .1, .2, .3} x 4 seeds, stragglers and
@@ -44,10 +53,16 @@ Phases, each printing one JSON line:
   serve        tinyllama-1.1b at full width (22 x 2048, bf16, seeded
                weights): a 4 x 4,096-token ``prefill`` launches the flash
                kernel once per layer and agrees with its ``force="torch"``
-               run within ``SERVE_LOGIT_BAND``; a 1,024-token prefill
-               launches it 0 times; ``launch.serve.main`` at its defaults
-               (batch 4, 32 tokens, max-seq 128); tokens/s, ms per decode
+               run within the band of ``SERVE_CELLS``, also in f32; a
+               1,024-token prefill launches it 0 times;
+               ``launch.serve.main`` at its defaults (batch 4, 32 tokens,
+               max-seq 128) launches no kernel; tokens/s, ms per decode
                step, the decode loop's device idle share, peak memory
+  serve_ssm    the same for mamba2-780m at full width (48 x 1536, bf16,
+               780,148,992 seeded parameters): the 4 x 4,096 prefill
+               launches the SSD scan kernel once per layer (three CUDA
+               launches per call) and agrees with ``force="torch"``;
+               decode runs no kernel
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -599,6 +614,175 @@ def phase_kernel_flash() -> dict:
     return res
 
 
+#: the mamba2-780m prefill's scan: b, l, h, g, p, n, chunk (x [4, 4096,
+#: 48, 64] seen as 192 head rows, B/C [4, 4096, 1, 128], 16 chunks)
+SSD_PATH = (4, 4096, 48, 1, 64, 128, 256)
+#: the reference's kernel test shapes (tests/test_kernels.py): bh, l, p,
+#: n, rep, chunk
+SSD_CASES = ((4, 128, 16, 8, 2, 32), (2, 64, 8, 16, 1, 16),
+             (6, 96, 32, 8, 3, 32))
+#: the reference's kernel contract (atol) and, at the path's magnitudes,
+#: a band relative to max |plain|: |cum| grows to 256 x mean |dA| over a
+#: chunk (an f32 ulp of 1.5e-5 from 128 up), so the two summation orders
+#: of the cumsum move exp(cum_i - cum_j) by a few 1e-5 of itself
+SSD_ATOL = 2e-4
+SSD_REL = 1e-4
+
+
+def _ssd_inputs(shape, dtype, gen):
+    """Model-layout scan inputs as the mamba prefill makes them: x, B, C
+    views of one [b, l, h p + 2 g n] tensor of silu'd unit normals in
+    ``dtype``; dt = softplus(unit normal) [b, l, h] f32; dA = dt * A with
+    A = -exp(0.3 unit normal) per head."""
+    import torch
+    import torch.nn.functional as F
+    b, l, h, g, p, n, _ = shape
+    xbc = F.silu(torch.randn((b, l, h * p + 2 * g * n), generator=gen,
+                             device="cuda")).to(dtype)
+    x = xbc[..., :h * p].reshape(b, l, h, p)
+    B = xbc[..., h * p:h * p + g * n].reshape(b, l, g, n)
+    C = xbc[..., h * p + g * n:].reshape(b, l, g, n)
+    dt = F.softplus(torch.randn((b, l, h), generator=gen, device="cuda"))
+    A = -torch.exp(0.3 * torch.randn(h, generator=gen, device="cuda"))
+    return x, dt, dt * A, B, C
+
+
+def _ssd_work(shape, itemsize):
+    """(bytes, operations) of one scan: x, dt, dA, B, C read once, y and
+    the state written once; per (head row, chunk) 2 (n + p) operations for
+    each of the Q (Q + 1) / 2 pairs j <= i (C.B and the weighted sum of
+    x) and 2 Q n p each for the off-diagonal term and the chunk state."""
+    b, l, h, g, p, n, q = shape
+    rows, nc = b * h, l // q
+    ops = rows * nc * (q * (q + 1) * (n + p) + 4 * q * n * p)
+    nbytes = (itemsize * (b * l * h * p + 2 * b * l * g * n)
+              + 4 * (2 * b * l * h + b * l * h * p + rows * p * n))
+    return nbytes, ops
+
+
+def _ssd_check(name, y, s, py, ps, rel):
+    """|kernel - plain| of y and the state within SSD_ATOL (+ ``rel`` *
+    max |plain|); returns the row with the share of the band used."""
+    import torch
+    row = {}
+    for what, a, b in (("y", y, py), ("state", s, ps)):
+        err = float((a - b).abs().max())
+        top = float(b.abs().max())
+        band = SSD_ATOL + rel * top
+        check(bool(torch.isfinite(a).all()), f"ssd kernel {what} not "
+              f"finite ({name})")
+        check(err <= band, f"ssd kernel {what} beyond {band} of the plain "
+              f"version ({name}): {err} (max |plain| {top})")
+        row.update({f"{what}_max_abs_err": err, f"{what}_max_abs": top,
+                    f"{what}_band": band, f"{what}_band_used": err / band})
+    return row
+
+
+def phase_kernel_ssd() -> dict:
+    """The CUDA SSD scan against its plain version: the reference's test
+    shapes (flat layout, atol 2e-4, f32 and bf16), its chunk-invariance
+    case, the mamba2-780m path shape in bf16 and f32 (model-layout views,
+    band SSD_ATOL + SSD_REL max |plain|), those views against contiguous
+    flat copies (bit for bit), and one b = 1, l = 32,768 call."""
+    import torch
+    from repro_torch.kernels.ssd_scan import (ssd_chunked_dA, ssd_scan_cuda,
+                                              ssd_scan_ref)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+
+    def flat_inputs(bh, l, p, n, rep, decay=None):
+        bg = bh // rep
+        x = torch.randn((bh, l, p), generator=gen, device="cuda") * 0.5
+        dt = torch.nn.functional.softplus(
+            torch.randn((bh, l), generator=gen, device="cuda"))
+        A = (-torch.exp(torch.randn(bh, generator=gen, device="cuda") * 0.3)
+             if decay is None else torch.full((bh,), decay, device="cuda"))
+        B, C = (torch.randn((bg, l, n), generator=gen, device="cuda") * 0.5
+                for _ in range(2))
+        return x, dt, dt * A[:, None], B, C
+
+    for case in SSD_CASES:
+        *dims, chunk = case
+        x, dt, dA, B, C = flat_inputs(*dims)
+        for dtype in (torch.float32, torch.bfloat16):
+            xx, bb, cc = (t.to(dtype) for t in (x, B, C))
+            y, s = ssd_scan_cuda(xx, dt, dA, bb, cc, chunk=chunk)
+            torch.cuda.synchronize()
+            py, ps = ssd_scan_ref(xx, dt, dA, bb, cc, chunk=chunk)
+            rows.append(dict(case=list(case), dtype=str(dtype)[6:],
+                             **_ssd_check(f"{case} {dtype}", y, s, py, ps,
+                                          0.0)))
+    # chunk invariance: the reference's case, chunk 16 against 64
+    x, dt, dA, B, C = flat_inputs(2, 128, 8, 8, 1, decay=-0.5)
+    y16, s16 = ssd_scan_cuda(x, dt, dA, B, C, chunk=16)
+    y64, s64 = ssd_scan_cuda(x, dt, dA, B, C, chunk=64)
+    torch.cuda.synchronize()
+    rows.append(dict(case="chunk 16 vs 64", **_ssd_check(
+        "chunk invariance", y16, s16, y64, s64, 0.0)))
+
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        x, dt, dA, B, C = _ssd_inputs(SSD_PATH, dtype, gen)
+        check(not x.is_contiguous() and not B.is_contiguous(),
+              "path inputs are strided views")
+        fn = lambda: ssd_scan_cuda(x, dt, dA, B, C, chunk=256)  # noqa: E731
+        y, s = fn()
+        torch.cuda.synchronize()
+        plain = lambda: ssd_chunked_dA(x, dt, dA, B, C, 256)  # noqa: E731
+        py, ps = plain()
+        row = _ssd_check(f"path {name}", y, s, py, ps, SSD_REL)
+        rows.append(dict(case="path", dtype=name, **row))
+        del py, ps
+        # the same rows as contiguous flat copies: bit for bit
+        b, l, h, g, p, n, _ = SSD_PATH
+        fy, fs = ssd_scan_cuda(
+            x.transpose(1, 2).reshape(b * h, l, p).contiguous(),
+            dt.transpose(1, 2).reshape(b * h, l).contiguous(),
+            dA.transpose(1, 2).reshape(b * h, l).contiguous(),
+            B.transpose(1, 2).reshape(b * g, l, n).contiguous(),
+            C.transpose(1, 2).reshape(b * g, l, n).contiguous(), chunk=256)
+        check(torch.equal(fy, y.transpose(1, 2).reshape(b * h, l, p))
+              and torch.equal(fs, s.reshape(b * h, p, n)),
+              f"ssd kernel on model-layout views differs from its run on "
+              f"contiguous flat copies ({name})")
+        del fy, fs
+        nbytes, ops = _ssd_work(SSD_PATH, x.element_size())
+        res[name] = dict(
+            kernel_us=cuda_ms(fn, 20) * 1e3,
+            kernel_device_us=_device_us_per_call(fn, ("ssd_",), 10),
+            plain_us=cuda_ms(plain, 3, warmup=1) * 1e3,
+            max_abs_err=row["y_max_abs_err"], **_bound(
+                nbytes, ops, BF16_TENSOR_OPS_PER_S
+                if dtype == torch.bfloat16 else VECTOR_OPS_PER_S))
+        del x, dt, dA, B, C, y, s
+
+    # one sequence of the reference's prefill_32k length
+    long = (1, 32768, 48, 1, 64, 128, 256)
+    x, dt, dA, B, C = _ssd_inputs(long, torch.bfloat16, gen)
+    fn = lambda: ssd_scan_cuda(x, dt, dA, B, C, chunk=256)  # noqa: E731
+    y, s = fn()
+    torch.cuda.synchronize()
+    py, ps = ssd_chunked_dA(x, dt, dA, B, C, 256)
+    long_row = _ssd_check("b 1, l 32,768", y, s, py, ps, SSD_REL)
+    del py, ps
+    nbytes, ops = _ssd_work(long, 2)
+    long_row.update(shape=list(long), kernel_us=cuda_ms(fn, 3, 1) * 1e3,
+                    bound_us=_bound(nbytes, ops, BF16_TENSOR_OPS_PER_S)[
+                        "bound_ms"] * 1e3)
+    del x, dt, dA, B, C, y, s
+
+    out = dict(res["bfloat16"], shape=dict(
+        x=[SSD_PATH[0], SSD_PATH[1], SSD_PATH[2], SSD_PATH[4]],
+        B=[SSD_PATH[0], SSD_PATH[1], SSD_PATH[3], SSD_PATH[5]],
+        chunk=SSD_PATH[6], dtype="bfloat16", layout="model-layout views"),
+        library_us=None, library=None, f32=res["float32"], long=long_row,
+        launches_per_call=3, cases=rows)
+    emit("kernel", name="ssd_scan", **out)
+    return out
+
+
 def phase_paper() -> None:
     import numpy as np
     import torch
@@ -799,10 +983,12 @@ def _wrappers() -> dict:
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.is_hist import key_histogram_cuda
     from repro_torch.kernels.kth_free import kth_free_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
     from repro_torch.kernels.stencil3d import stencil7_cuda
     return {"kth_free": kth_free_cuda, "ep": ep_pairs_cuda,
             "is_hist": key_histogram_cuda, "stencil7": stencil7_cuda,
-            "flash_attention": flash_attention_cuda}
+            "flash_attention": flash_attention_cuda,
+            "ssd_scan": ssd_scan_cuda}
 
 
 def _expected_launches(name, size):
@@ -1007,13 +1193,24 @@ def phase_executed_campaign() -> None:
          paper_vs_fastest_makespan=(m_p - m_f) / m_f)
 
 
-#: |logits(kernel prefill) - logits(force="torch" prefill)| at full width
-#: (PERF.md "Parity bands"): in bf16, about six bf16 steps at the largest
-#: logit (the hidden state is bf16, so one-ulp differences in the
-#: attention outputs carry through 22 layers); in f32, the kernel's and
-#: the plain version's summation orders alone
-SERVE_LOGIT_BAND = {"bfloat16": 0.1, "float32": 1e-3}
-SERVE_ARCH = "tinyllama-1.1b"
+#: the serving cells: phase -> (arch, the kernel its prefill launches once
+#: per layer, |logits(kernel prefill) - logits(force="torch" prefill)|
+#: band by dtype).  PERF.md "Parity bands": in bf16 the hidden state is
+#: bf16, so a one-ulp difference in a layer's kernel output carries
+#: through every later layer (tinyllama: about six bf16 steps at the
+#: largest logit over 22 layers).  mamba2's 48 random-weight layers
+#: amplify any rounding difference: on an H100 its plain version against
+#: itself at chunk 128 (the same sums, rounded in another order) differs
+#: by 0.54 in bf16 and 5.5e-4 in f32 at logits up to 4.1, and the kernel
+#: by 0.57 and 7.3e-4; ``serve_ssm`` measures and prints that floor
+SERVE_CELLS = {
+    "serve": ("tinyllama-1.1b", "flash_attention",
+              {"bfloat16": 0.1, "float32": 1e-3}),
+    "serve_ssm": ("mamba2-780m", "ssd_scan",
+                  {"bfloat16": 1.0, "float32": 1e-3}),
+}
+#: parameters of the full-size configs (the reference's ``param_specs``)
+SERVE_PARAMS = {"tinyllama-1.1b": 1_100_048_384, "mamba2-780m": 780_148_992}
 
 
 def _decode_loop_stats(api, params, logits, steps):
@@ -1045,17 +1242,16 @@ def _decode_loop_stats(api, params, logits, steps):
                 decode_host_syncs=syncs)
 
 
-def _prefill_pair(api, params, batch, counted, wrappers):
-    """The kernel prefill (flash launched once per layer, nothing else)
-    and its ``force="torch"`` run (nothing launched): logits, seconds and
-    their max abs difference, held to ``SERVE_LOGIT_BAND``."""
+def _prefill_pair(api, params, batch, counted, wrappers, kernel, band):
+    """The kernel prefill (``kernel`` launched once per layer, nothing
+    else) and its ``force="torch"`` run (nothing launched): logits,
+    seconds and their max abs difference, held to ``band``."""
     import torch
     cfg = api.cfg
     logits, t_kernel, launches = counted(lambda: api.prefill(params, batch))
-    check(launches == {**dict.fromkeys(wrappers, 0),
-                       "flash_attention": cfg.n_layers},
+    check(launches == {**dict.fromkeys(wrappers, 0), kernel: cfg.n_layers},
           f"{cfg.dtype} prefill launches {launches}, expected "
-          f"{cfg.n_layers} flash_attention")
+          f"{cfg.n_layers} {kernel}")
     plain, t_plain, plain_launches = counted(
         lambda: api.prefill(params, batch, force="torch"))
     check(not any(plain_launches.values()),
@@ -1064,20 +1260,34 @@ def _prefill_pair(api, params, batch, counted, wrappers):
           and logits.dtype == torch.float32
           and bool(torch.isfinite(logits).all()), "prefill logits")
     diff = float((logits - plain).abs().max())
-    check(diff <= SERVE_LOGIT_BAND[cfg.dtype],
+    check(diff <= band[cfg.dtype],
           f"{cfg.dtype} kernel vs plain prefill logits differ by {diff} "
-          f"(band {SERVE_LOGIT_BAND[cfg.dtype]})")
+          f"(band {band[cfg.dtype]})")
     return logits, plain, t_kernel, t_plain, launches, diff
 
 
-def phase_serve(counters: dict) -> None:
-    """tinyllama-1.1b at full width on the card: the main path of this
+def _chunk_floor(api, params, batch, plain):
+    """max |plain prefill logits - the plain prefill at half the SSD
+    chunk|: the same sums rounded in another order, the floor the kernel's
+    difference is read against."""
+    import dataclasses
+    from repro_torch.models import build_model
+    cfg = api.cfg
+    half = build_model(cfg.with_overrides(ssm=dataclasses.replace(
+        cfg.ssm, chunk=cfg.ssm.chunk // 2)))
+    return float((half.prefill(params, batch, force="torch") - plain)
+                 .abs().max())
+
+
+def phase_serve(counters: dict, phase: str) -> None:
+    """One serving cell at full width on the card: the main path of its
     slice.  Every kernel count is set to 0 just before each run and read
     just after; the 4 x 4,096 prefill's counts go to ``counters``."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import build_model
+    arch, kernel, band = SERVE_CELLS[phase]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -1094,34 +1304,42 @@ def phase_serve(counters: dict) -> None:
         return out, time.perf_counter() - t0, {
             n: w.launches for n, w in wrappers.items()}
 
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     api = build_model(cfg)
     t0 = time.perf_counter()
     params = api.init_params(0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(params))
+    check(n_params == SERVE_PARAMS[arch], f"{arch}: {n_params} parameters")
     gen = torch.Generator(device="cuda").manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (4, 4096), generator=gen,
                            device="cuda")
     batch = {"tokens": tokens}
     api.prefill(params, batch)                            # warm up
     logits, plain, t_prefill, t_plain, launches, diff = _prefill_pair(
-        api, params, batch, counted, wrappers)
-    counters["flash_attention"] = launches["flash_attention"]
+        api, params, batch, counted, wrappers, kernel, band)
+    counters[kernel] = launches[kernel]
     top2 = plain.topk(2, dim=-1).values
     margin = top2[:, 0] - top2[:, 1]
-    clear = margin > SERVE_LOGIT_BAND[cfg.dtype]
+    clear = margin > band[cfg.dtype]
     same = logits.argmax(-1) == plain.argmax(-1)
     check(bool(same[clear].all()), "argmax differs where the top-2 margin "
           f"exceeds the band: margins {margin.tolist()}")
-    short, t_short, launches = counted(
-        lambda: api.prefill(params, {"tokens": tokens[:, :1024]}))
-    check(not any(launches.values()),
-          f"1,024-token prefill launched {launches} (plain_attention)")
-    check(bool(torch.isfinite(short).all()), "1,024-token prefill logits")
+    extra = {}
+    if kernel == "flash_attention":
+        # below 2,048 tokens the reference's rule takes plain_attention
+        short, t_short, launches = counted(
+            lambda: api.prefill(params, {"tokens": tokens[:, :1024]}))
+        check(not any(launches.values()),
+              f"1,024-token prefill launched {launches} (plain_attention)")
+        check(bool(torch.isfinite(short).all()), "1,024-token prefill logits")
+        extra = dict(short_prefill_s=t_short, short_prefill_launches=0)
+    else:
+        extra = dict(plain_half_chunk_logits_max_abs_diff=_chunk_floor(
+            api, params, batch, plain))
 
-    res, t_main, launches = counted(lambda: serve.main(["--arch", SERVE_ARCH]))
+    res, t_main, launches = counted(lambda: serve.main(["--arch", arch]))
     check(not any(launches.values()), f"decode launched {launches}")
     check(res["steps"] == 31 and bool(torch.isfinite(res["logits"]).all()),
           "serve.main decodes 31 timed steps with finite logits")
@@ -1129,29 +1347,31 @@ def phase_serve(counters: dict) -> None:
     peak = torch.cuda.max_memory_allocated()
 
     # the same prefill in f32: kernel and plain version within f32 noise
+    del params
     api32 = build_model(cfg.with_overrides(dtype="float32"))
     params32 = api32.init_params(0)
-    *_, t32, t32_plain, _, diff32 = _prefill_pair(api32, params32, batch,
-                                                  counted, wrappers)
+    _, plain32, t32, t32_plain, _, diff32 = _prefill_pair(
+        api32, params32, batch, counted, wrappers, kernel, band)
+    if kernel == "ssd_scan":
+        extra["f32_plain_half_chunk_logits_max_abs_diff"] = _chunk_floor(
+            api32, params32, batch, plain32)
     del params32
-    emit("serve", arch=SERVE_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
+    emit(phase, arch=arch, layers=cfg.n_layers, d_model=cfg.d_model,
          dtype=cfg.dtype, params=n_params, init_s=init_s,
          prefill_shape=list(tokens.shape), prefill_s=t_prefill,
          prefill_tokens_per_s=tokens.numel() / t_prefill,
-         prefill_flash_launches=counters["flash_attention"],
+         prefill_kernel=kernel, prefill_launches=counters[kernel],
          prefill_plain_s=t_plain,
          prefill_plain_tokens_per_s=tokens.numel() / t_plain,
-         logits_max_abs_diff=diff,
-         logit_band=SERVE_LOGIT_BAND[cfg.dtype],
+         logits_max_abs_diff=diff, logit_band=band[cfg.dtype],
          logits_abs_max=float(plain.abs().max()),
-         top2_margin=margin.tolist(), argmax_equal=same.tolist(),
-         short_prefill_s=t_short, short_prefill_flash_launches=0,
+         top2_margin=margin.tolist(), argmax_equal=same.tolist(), **extra,
          decode_batch=4, decode_steps=res["steps"],
          decode_tokens_per_s=res["tokens_per_s"],
          decode_ms_per_step=res["ms_per_step"], serve_main_s=t_main, **idle,
          max_memory_allocated=peak, f32_prefill_s=t32,
          f32_prefill_plain_s=t32_plain, f32_logits_max_abs_diff=diff32,
-         f32_logit_band=SERVE_LOGIT_BAND["float32"],
+         f32_logit_band=band["float32"],
          allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
          allow_bf16_reduced_precision_reduction=(
@@ -1180,12 +1400,14 @@ def _phases(counters: dict) -> dict:
                            "is_hist": phase_kernel_is(),
                            "stencil7": phase_kernel_stencil()},
         "kernel_flash": phase_kernel_flash,
+        "kernel_ssd": phase_kernel_ssd,
         "paper": phase_paper,
         "campaign": lambda: phase_campaign(counters),
         "cross_device": phase_cross_device,
         "workloads": lambda: phase_workloads(counters),
         "executed_campaign": phase_executed_campaign,
-        "serve": lambda: phase_serve(counters),
+        "serve": lambda: phase_serve(counters, "serve"),
+        "serve_ssm": lambda: phase_serve(counters, "serve_ssm"),
     }
 
 
@@ -1212,7 +1434,8 @@ def main(argv=None) -> int:
     if only is not None:
         emit("done", seconds=time.perf_counter() - t_start, only=only)
         return 0
-    kern = {**results["kernel"], "flash_attention": results["kernel_flash"]}
+    kern = {**results["kernel"], "flash_attention": results["kernel_flash"],
+            "ssd_scan": results["kernel_ssd"]}
     meta = {  # name: (source, replaced TPU kernel, how it is checked)
         "kth_free": ("src/repro_torch/kernels/kth_free/csrc/kth_free.cu",
                      "src/repro/kernels/kth_free/kernel.py:81",
@@ -1231,6 +1454,11 @@ def main(argv=None) -> int:
             "src/repro/kernels/flash_attention/kernel.py:68",
             "vs blocked plain and attention_ref: atol 3e-5 f32, 3e-2 bf16 "
             "and 2 bf16 ulps of |ref| + 1e-4"),
+        "ssd_scan": (
+            "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+            "src/repro/kernels/ssd_scan/kernel.py:76",
+            "vs plain: atol 2e-4 at the reference's shapes; 2e-4 + 1e-4 "
+            "max|plain| at the path shape and l 32,768; views == copies"),
     }
     kernels = []
     for name, (source, replaces, how) in meta.items():

@@ -26,6 +26,7 @@ SOURCES = {
     "is_hist": _HERE / "is_hist" / "csrc" / "is_hist.cu",
     "stencil7": _HERE / "stencil3d" / "csrc" / "stencil7.cu",
     "flash_attention": _HERE / "flash_attention" / "csrc" / "flash_attention.cu",
+    "ssd_scan": _HERE / "ssd_scan" / "csrc" / "ssd_scan.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,5 +1,5 @@
-"""The dispatch modes shared by the NPB kernels (ep, is_hist, stencil3d)
-and flash attention.
+"""The dispatch modes shared by the NPB kernels (ep, is_hist, stencil3d),
+flash attention and the SSD scan.
 
   cuda   — the hand-written CUDA kernel (CUDA tensors only; raises on others)
   torch  — the plain torch version (any device)

@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
+        --reduced --device cpu
 
 Runs on the CUDA device by default (``--device cuda``) and raises without
 one.  Weights come from the port's own seeded init

@@ -1,4 +1,4 @@
-"""Model API of the port's LM stack (dense decoder serving).
+"""Model API of the port's LM stack (dense-decoder and pure-SSM serving).
 
 ``build_model(cfg, device=None)`` returns a ``ModelApi`` whose functions
 run on the CUDA device unless ``device="cpu"`` is passed: ``None`` means
@@ -28,8 +28,10 @@ class ModelApi:
 
 
 def build_model(cfg: ModelConfig, device=None) -> ModelApi:
-    """The serving API of ``cfg`` on ``device`` (None: CUDA).  Raises
-    ``NotImplementedError`` for a family the port does not serve yet."""
+    """The serving API of ``cfg`` on ``device`` (None: CUDA): the dense
+    family and pure SSM (Mamba-2).  Raises ``NotImplementedError`` for a
+    family the port does not serve yet (MoE, hybrid, encoder-decoder,
+    VLM)."""
     T.check_supported(cfg)
     dev = resolve_device(device)
     return ModelApi(

@@ -1,15 +1,18 @@
-"""Decoder-only LM serving: the dense family (``repro/models/transformer.py``).
+"""Decoder-only LM serving: the dense and pure-SSM (Mamba-2) families
+(``repro/models/transformer.py``).
 
 Parameters are a dict of tensors in the reference's layouts, with the
 layers as a list (``params["layers"][i]``) rather than stacked groups:
 PyTorch runs eagerly, so ``backbone`` is a loop over layers and the
 reference's ``scan_layers`` and ``remat`` have no meaning here (nor has
-``sharding.annotate``, a no-op without a mesh).
+``sharding.annotate``, a no-op without a mesh).  A layer is an attention
+layer (``attn``) or a Mamba-2 mixer (``mamba``), with ``norm2`` and an MLP
+after it when ``d_ff > 0``.
 
-Only the dense family is ported.  A config with MoE, SSM or hybrid
-layers, an encoder-decoder or a VLM prefix raises ``NotImplementedError``
-naming its ROADMAP item; ``train_loss`` and ``chunked_xent`` wait for the
-training slice (Queue 1 item 14e).
+The dense family and pure SSM are ported.  A config with MoE or hybrid
+layers, an encoder-decoder or a VLM prefix raises
+``NotImplementedError`` naming its ROADMAP item; ``train_loss`` and
+``chunked_xent`` wait for the training slice (Queue 1 item 14e).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as S
 
 
 def group_size(cfg: ModelConfig) -> int:
@@ -42,10 +46,7 @@ def check_supported(cfg: ModelConfig) -> None:
     yet, naming its ROADMAP item (Queue 1)."""
     if cfg.is_encoder_decoder:
         why = "the encoder-decoder waits for ROADMAP Queue 1 item 14d"
-    elif cfg.ssm is not None and cfg.attn_layer_period <= 0:
-        why = ("SSM (Mamba-2) layers wait for ROADMAP Queue 1 item 14b "
-               "(mamba2-780m serving with the ssd_scan kernel)")
-    elif cfg.ssm is not None:
+    elif cfg.ssm is not None and cfg.attn_layer_period > 0:
         why = "hybrid SSM/attention layers wait for ROADMAP Queue 1 item 14c"
     elif cfg.moe.n_experts:
         why = "MoE layers wait for ROADMAP Queue 1 item 14c"
@@ -54,11 +55,19 @@ def check_supported(cfg: ModelConfig) -> None:
     else:
         return
     raise NotImplementedError(f"{cfg.name} ({cfg.family}): {why}; the port "
-                              f"serves the dense family only")
+                              f"serves the dense and pure-SSM families only")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def _layer_kind(cfg: ModelConfig, i: int) -> str:
+    return "attn" if cfg.layer_is_attn(i % group_size(cfg)) else "mamba"
+
+
+def _has_ffn(cfg: ModelConfig) -> bool:
+    return cfg.d_ff > 0
 
 
 # ------------------------------------------------------------------- init
@@ -77,11 +86,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
               "head": L.init_lm_head(cfg, gen, dtype),
               "final_norm": L.init_norm(cfg, dtype, device),
               "layers": []}
-    for _ in range(cfg.n_layers):
-        params["layers"].append({"norm1": L.init_norm(cfg, dtype, device),
-                                 "attn": A.init_attn(cfg, gen, dtype),
-                                 "norm2": L.init_norm(cfg, dtype, device),
-                                 "mlp": L.init_mlp(cfg, gen, dtype)})
+    for i in range(cfg.n_layers):
+        lp = {"norm1": L.init_norm(cfg, dtype, device)}
+        if _layer_kind(cfg, i) == "attn":
+            lp["attn"] = A.init_attn(cfg, gen, dtype)
+        else:
+            lp["mamba"] = S.init_mamba(cfg, gen, dtype)
+        if _has_ffn(cfg):
+            lp["norm2"] = L.init_norm(cfg, dtype, device)
+            lp["mlp"] = L.init_mlp(cfg, gen, dtype)
+        params["layers"].append(lp)
     return params
 
 
@@ -92,16 +106,22 @@ def _use_rope(cfg: ModelConfig) -> bool:
 
 
 def _ffn(cfg, lp, x):
+    if not _has_ffn(cfg):
+        return x
     return x + L.apply_mlp(lp["mlp"], L.apply_norm(lp["norm2"], x, cfg), cfg)
 
 
 def backbone(cfg: ModelConfig, params, x, *, force=None):
-    """The layers over a [b, s, d] stream (before the final norm)."""
+    """The layers over a [b, s, d] stream (before the final norm).
+    ``force`` goes to the flash or SSD scan dispatch of every layer."""
     for lp in params["layers"]:
         h = L.apply_norm(lp["norm1"], x, cfg)
-        x = x + A.attn_forward(lp["attn"], h, cfg, use_rope=_use_rope(cfg),
+        if "attn" in lp:
+            h = A.attn_forward(lp["attn"], h, cfg, use_rope=_use_rope(cfg),
                                force=force)
-        x = _ffn(cfg, lp, x)
+        else:
+            h = S.mamba_forward(lp["mamba"], h, cfg, force=force)
+        x = _ffn(cfg, lp, x + h)
     return x
 
 
@@ -116,7 +136,7 @@ def embed_inputs(cfg: ModelConfig, params, batch):
 def prefill(cfg: ModelConfig, params, batch, *, force=None):
     """Prefill forward -> last-position logits [b, V] f32 (no cache, as
     the reference's).  ``force`` (None | 'cuda' | 'torch') picks how the
-    flash branch runs."""
+    flash branch or the SSD scan runs."""
     check_supported(cfg)
     x = embed_inputs(cfg, params, batch)
     x = backbone(cfg, params, x, force=force)
@@ -126,11 +146,21 @@ def prefill(cfg: ModelConfig, params, batch, *, force=None):
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
                       device=None):
-    """Zero KV cache: ``{"k": [L, b, S, kv, hd], "v": ...}`` in the
-    config's dtype on ``device`` (None: CUDA, raising without a card).
-    ``decode_step`` writes it in place."""
+    """Zero decode cache on ``device`` (None: CUDA, raising without a
+    card): the KV cache ``{"k": [L, b, S, kv, hd], "v": ...}`` in the
+    config's dtype for attention layers, or for Mamba-2 layers
+    ``{"conv": [L, b, K-1, conv_dim]`` in the config's dtype, ``"state":
+    [L, b, h, p, n]`` f32``}`` (``max_seq`` unused).  ``decode_step``
+    writes it in place."""
     check_supported(cfg)
     device = resolve_device(device)
+    if _layer_kind(cfg, 0) == "mamba":
+        (conv, conv_dt), (state, state_dt) = S.mamba_decode_cache_specs(
+            cfg, batch)
+        return {"conv": torch.zeros((cfg.n_layers, *conv), dtype=conv_dt,
+                                    device=device),
+                "state": torch.zeros((cfg.n_layers, *state), dtype=state_dt,
+                                     device=device)}
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
              cfg.resolved_head_dim())
     return {name: torch.zeros(shape, dtype=_dtype(cfg), device=device)
@@ -139,13 +169,21 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int):
     """One decode step for all sequences at position ``pos`` (an int).
-    tokens: [b, 1] int.  Writes the new keys and values into ``cache`` in
-    place.  Returns (logits [b, V] f32, cache)."""
+    tokens: [b, 1] int.  Writes the new keys and values (or conv buffers
+    and SSD states) into ``cache`` in place.  Returns (logits [b, V] f32,
+    cache)."""
     x = L.embed_tokens(params["embed"], tokens, cfg)
     for i, lp in enumerate(params["layers"]):
         h = L.apply_norm(lp["norm1"], x, cfg)
-        x = x + A.attn_decode(lp["attn"], h, cfg, cache["k"][i],
+        if "attn" in lp:
+            h = A.attn_decode(lp["attn"], h, cfg, cache["k"][i],
                               cache["v"][i], pos, use_rope=_use_rope(cfg))
-        x = _ffn(cfg, lp, x)
+        else:
+            h, conv, state = S.mamba_decode(lp["mamba"], h, cfg,
+                                            cache["conv"][i],
+                                            cache["state"][i])
+            cache["conv"][i].copy_(conv)
+            cache["state"][i].copy_(state)
+        x = _ffn(cfg, lp, x + h)
     x = L.apply_norm(params["final_norm"], x, cfg)
     return L.lm_logits(params["embed"], params["head"], x, cfg)[:, 0], cache

@@ -112,7 +112,7 @@ def test_models_default_to_cuda_and_never_fall_back(monkeypatch):
 
 @pytest.mark.parametrize("arch,item", [
     ("llama4-scout-17b-a16e", "item 14c"), ("moonshot-v1-16b-a3b", "item 14c"),
-    ("jamba-v0.1-52b", "item 14c"), ("mamba2-780m", "item 14b"),
+    ("jamba-v0.1-52b", "item 14c"),
     ("whisper-medium", "item 14d"), ("phi-3-vision-4.2b", "item 14d")])
 def test_unported_model_families_raise(arch, item):
     from repro_torch.configs import get_config, smoke_reduce
@@ -126,6 +126,36 @@ def test_unported_model_families_raise(arch, item):
             init_params(c)
         with pytest.raises(NotImplementedError, match=item):
             prefill(c, {}, {"tokens": None})
+
+
+def test_ssm_serving_imports_no_jax_and_never_falls_back(monkeypatch):
+    """The Mamba-2 modules and the SSD scan kernel load no JAX or
+    ``repro`` module, and mamba2-780m defaults to CUDA, raising without a
+    card."""
+    code = ("import sys\n"
+            "import repro_torch.models.mamba, repro_torch.kernels.ssd_scan\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    from repro_torch.configs import get_config, smoke_reduce
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import init_decode_cache, init_params
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("mamba2-780m")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg)
+    for fn in (lambda c: init_params(c, 0),
+               lambda c: init_decode_cache(c, 1, 8)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(smoke_reduce(cfg))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "mamba2-780m", "--reduced"])
+    assert build_model(cfg, device="cpu").device.type == "cpu"
 
 
 def test_params_from_reference_imports_nothing_of_the_reference():
