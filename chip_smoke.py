@@ -19,18 +19,23 @@ Phases, each printing one JSON line:
                [4, 4096, 4, 64], causal, bf16 and f32), the reference's
                test shapes (causal and not, sk != sq, MQA, head dims
                32/64/128/256, f32 and bf16) and strided views (fused QKV,
-               head-major); kernel / device / plain /
-               ``F.scaled_dot_product_attention`` times and the bound, and
-               one b = 1, s = 32,768 call with its last rows checked
+               head-major, f32 and bf16); the route each case took (bf16
+               at head dims 64 and 128: the tensor-core kernel, else the
+               f32-core one); kernel / device / plain /
+               ``F.scaled_dot_product_attention`` times, the bound and the
+               tensor-core route's issued-operation floor, and one b = 1,
+               s = 32,768 call with its last rows checked
   kernel_ssd   the SSD chunk-scan kernel against its plain version: the
                reference's test shapes (atol 2e-4, f32 and bf16), its
                chunk-invariance case (16 vs 64), the mamba2-780m path shape
                (x [4, 4096, 48, 64], B/C [4, 4096, 1, 128], chunk 256,
                bf16 and f32, as strided model-layout views; within 2e-4 +
                1e-4 max |plain|, and bit-equal to its run on contiguous
-               copies) and one b = 1, l = 32,768 call; kernel / device /
-               plain times and the bound (no single PyTorch call computes
-               an SSD scan)
+               copies) and one b = 1, l = 32,768 call; the route (bf16:
+               four tensor-core launches, f32: three f32-core ones);
+               kernel / device / per-launch device / plain times, the bound
+               and the tensor-core route's issued-operation floor (no
+               single PyTorch call computes an SSD scan)
   paper        the paper's NPB K sweep; the paper-claim assertions hold
   campaign     the documented campaign: 10,000 Poisson NPB jobs at rate
                0.5, K in {0, .05, .1, .2, .3} x 4 seeds, stragglers and
@@ -52,7 +57,8 @@ Phases, each printing one JSON line:
                card at ``smoke`` size and verified; energy and makespan
   serve        tinyllama-1.1b at full width (22 x 2048, bf16, seeded
                weights): a 4 x 4,096-token ``prefill`` launches the flash
-               kernel once per layer and agrees with its ``force="torch"``
+               kernel once per layer (the tensor-core route; f32: the
+               f32-core one) and agrees with its ``force="torch"``
                run within the band of ``SERVE_CELLS``, also in f32; a
                1,024-token prefill launches it 0 times;
                ``launch.serve.main`` at its defaults (batch 4, 32 tokens,
@@ -60,8 +66,9 @@ Phases, each printing one JSON line:
                step, the decode loop's device idle share, peak memory
   serve_ssm    the same for mamba2-780m at full width (48 x 1536, bf16,
                780,148,992 seeded parameters): the 4 x 4,096 prefill
-               launches the SSD scan kernel once per layer (three CUDA
-               launches per call) and agrees with ``force="torch"``;
+               calls the SSD scan kernel once per layer (bf16: the
+               tensor-core route, four CUDA launches per call; f32: the
+               f32-core one, three) and agrees with ``force="torch"``;
                decode runs no kernel
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
@@ -132,22 +139,39 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def _device_us_per_call(fn, names, iters: int = 200):
-    """Mean device time (µs) per call of ``fn`` spent in the CUDA kernels
-    (and memsets) whose name contains one of ``names``, from a profiler
-    trace of ``iters`` calls: the kernels alone, without the host's
-    launch gaps that the back-to-back event timing includes.  None if the
-    trace is empty."""
+def _device_us_by_kernel(fn, names, iters: int = 200) -> dict:
+    """Device time (µs) per call of ``fn`` in each CUDA kernel (or memset)
+    whose name contains one of ``names``, by the kernel's own name, from
+    a profiler trace of ``iters`` calls: the kernels alone, without the
+    host's launch gaps that the back-to-back event timing includes.  Each
+    is the mean time of the kernel's traced launches times its launches
+    per call (traced launches / iters, rounded, at least 1), so that
+    launches the trace drops do not count as time not spent."""
+    import re
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    times = [e.device_time_total for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and any(n in e.name for n in names)]
-    return sum(times) / iters if times else None
+    total: dict = {}
+    count: dict = {}
+    pattern = re.compile("(" + "|".join(map(re.escape, names)) + r")\w*")
+    for e in prof.events():
+        match = pattern.search(e.name)
+        if e.device_type == torch.autograd.DeviceType.CUDA and match:
+            name = match.group(0)
+            total[name] = total.get(name, 0.0) + e.device_time_total
+            count[name] = count.get(name, 0) + 1
+    return {name: total[name] / count[name]
+            * max(1, round(count[name] / iters)) for name in total}
+
+
+def _device_us_per_call(fn, names, iters: int = 200):
+    """The sum of ``_device_us_by_kernel``: device µs per call of ``fn``
+    in the kernels named; None if the trace is empty."""
+    by_kernel = _device_us_by_kernel(fn, names, iters)
+    return sum(by_kernel.values()) if by_kernel else None
 
 
 def _device_busy_us(fn, count=False):
@@ -482,6 +506,20 @@ def _attention_work(shape, causal, itemsize):
             4 * hd * b * h * pairs)
 
 
+def _flash_issued(shape, causal):
+    """Operations the tensor-core route issues: for each 64-row tile of
+    (position, query head) rows of one (batch, KV head), 64-key tiles up
+    to the tile's last position (causal) or to sk, each pair costing
+    2 hd (S = Q K^T) + 4 hd (P V with P split in two) operations."""
+    b, sq, sk, h, kv, hd = shape
+    rep, rows = h // kv, sq * h // kv
+    keys = 0
+    for row0 in range(0, rows, 64):
+        end = min(sk, (min(row0 + 64, rows) - 1) // rep + 1) if causal else sk
+        keys += -(-end // 64) * 64
+    return 6 * hd * 64 * keys * b * kv
+
+
 def _sdpa(q, k, v, causal):
     """The library yardstick: ``F.scaled_dot_product_attention`` on its
     flash backend, in its own [b, h, s, hd] layout (the port never calls
@@ -514,6 +552,7 @@ def phase_kernel_flash() -> dict:
     def compare(shape, dtype, causal, block, qkv=None):
         q, k, v = qkv or _flash_inputs(shape, dtype, gen)
         out = flash_attention_cuda(q, k, v, causal=causal)
+        route = flash_attention_cuda.last_route
         torch.cuda.synchronize()
         plain = flash_attention(q, k, v, causal=causal, block_q=block,
                                 block_k=block, force="torch")
@@ -522,7 +561,8 @@ def phase_kernel_flash() -> dict:
         e_ref = float((out.float() - ref.float()).abs().max())
         name = str(dtype).split(".")[-1]
         row = dict(shape=list(shape), dtype=name, causal=causal,
-                   strided=qkv is not None, vs_plain=e_plain, vs_ref=e_ref)
+                   strided=qkv is not None, route=route, vs_plain=e_plain,
+                   vs_ref=e_ref)
         check(out.dtype == dtype and out.shape == q.shape,
               f"flash kernel output {out.dtype} {tuple(out.shape)}")
         check(e_plain <= FLASH_ATOL[name] and e_ref <= FLASH_ATOL[name],
@@ -545,27 +585,34 @@ def phase_kernel_flash() -> dict:
     # q, k, v read in place through their strides: views of one fused
     # [b, s, h + 2 kv, hd] projection, and head-major [b, h, s, hd]
     # tensors seen as [b, s, h, hd]; equal bit for bit to the kernel on
-    # contiguous copies
+    # contiguous copies (f32: the f32-core route, bf16: the tensor-core one)
     b, s, _, h, kv, hd = shape = (2, 512, 512, 8, 2, 64)
-    fused = torch.randn((b, s, h + 2 * kv, hd), generator=gen,
-                        device="cuda")
-    views = {"fused": (fused[:, :, :h], fused[:, :, h:h + kv],
-                       fused[:, :, h + kv:]),
-             "head_major": tuple(
-                 torch.randn((b, n, s, hd), generator=gen,
-                             device="cuda").transpose(1, 2)
-                 for n in (h, kv, kv))}
-    for layout, qkv in views.items():
-        check(not any(t.is_contiguous() for t in qkv), f"{layout} views")
-        for causal in (True, False):
-            out = compare(shape, torch.float32, causal, 128, qkv)[3]
-            copy = flash_attention_cuda(*(t.contiguous() for t in qkv),
-                                        causal=causal)
-            check(torch.equal(out, copy), f"flash kernel on {layout} views "
-                  f"differs from its run on contiguous copies")
-    del fused, views
+    for dtype in (torch.float32, torch.bfloat16):
+        fused = torch.randn((b, s, h + 2 * kv, hd), generator=gen,
+                            device="cuda").to(dtype)
+        views = {"fused": (fused[:, :, :h], fused[:, :, h:h + kv],
+                           fused[:, :, h + kv:]),
+                 "head_major": tuple(
+                     torch.randn((b, n, s, hd), generator=gen,
+                                 device="cuda").to(dtype).transpose(1, 2)
+                     for n in (h, kv, kv))}
+        for layout, qkv in views.items():
+            check(not any(t.is_contiguous() for t in qkv), f"{layout} views")
+            for causal in (True, False):
+                out = compare(shape, dtype, causal, 128, qkv)[3]
+                copy = flash_attention_cuda(*(t.contiguous() for t in qkv),
+                                            causal=causal)
+                check(torch.equal(out, copy), f"flash kernel on {layout} "
+                      f"{dtype} views differs from its run on contiguous "
+                      f"copies")
+        del fused, views
     compare(FLASH_PATH, torch.float32, True, 512)
+    check(flash_attention_cuda.last_route == "f32-core",
+          "f32 inputs take the f32-core kernel")
     q, k, v, out, path_err = compare(FLASH_PATH, torch.bfloat16, True, 512)
+    route = flash_attention_cuda.last_route
+    check(route == "tensor-core", f"bf16 path inputs took the {route} "
+          f"kernel, not the tensor-core one")
 
     fn = lambda: flash_attention_cuda(q, k, v, causal=True)  # noqa: E731
     lib = _sdpa(q, k, v, True)
@@ -575,6 +622,9 @@ def phase_kernel_flash() -> dict:
     nbytes, ops = _attention_work(FLASH_PATH, True, 2)
     res = dict(shape=dict(q=list(q.shape), k=list(k.shape), dtype="bfloat16",
                           causal=True),
+               route=route,
+               issued_floor_ms=_flash_issued(FLASH_PATH, True)
+               / BF16_TENSOR_OPS_PER_S * 1e3,
                kernel_us=cuda_ms(fn, 20) * 1e3,
                kernel_device_us=_device_us_per_call(fn, ("flash_fwd",), 10),
                plain_us=cuda_ms(lambda: flash_attention(
@@ -601,7 +651,8 @@ def phase_kernel_flash() -> dict:
           f"flash kernel at s = 32,768: last rows off by {long_err}, "
           f"{long_ulps} of 2 bf16 ulps of |ref| + 1e-4")
     nbytes, ops = _attention_work(long, True, 2)
-    res["long"] = dict(shape=list(long), kernel_us=cuda_ms(fn, 2, 1) * 1e3,
+    res["long"] = dict(shape=list(long), route=flash_attention_cuda.last_route,
+                       kernel_us=cuda_ms(fn, 2, 1) * 1e3,
                        library_us=cuda_ms(_sdpa(q, k, v, True), 3, 1) * 1e3,
                        last_rows_max_abs_err=long_err,
                        last_rows_ulp_bound_used=long_ulps,
@@ -660,6 +711,25 @@ def _ssd_work(shape, itemsize):
     return nbytes, ops
 
 
+def _ssd_issued(shape):
+    """Operations the tensor-core route issues, from its tiling (64 x 64
+    output tiles, operands zero-padded to multiples of 64, each split
+    operand doubling its product): C.B once per (batch, group, chunk) on
+    the tiles j0 <= i0; per (head row, chunk) the state x^T (B w) in
+    64 x 128 tiles and, per 64-row query tile, y_off and the y_diag tiles
+    j0 <= i0."""
+    b, l, h, g, p, n, q = shape
+    nc, rows = l // q, b * h
+    up = lambda v, t: -(-v // t) * t  # noqa: E731
+    qt, pp, nn = up(q, 64) // 64, up(p, 64), up(n, 64)
+    tile = 2 * 64 * 64 * 64                # one 64 x 64 x 64 product
+    cb = b * g * nc * qt * (qt + 1) // 2 * 2 * 64 * 64 * nn
+    state = rows * nc * 2 * 2 * pp * up(n, 128) * up(q, 64)
+    out = rows * nc * (pp // 64) * 2 * tile * (
+        qt * (nn // 64) + qt * (qt + 1) // 2)
+    return cb + state + out
+
+
 def _ssd_check(name, y, s, py, ps, rel):
     """|kernel - plain| of y and the state within SSD_ATOL (+ ``rel`` *
     max |plain|); returns the row with the share of the band used."""
@@ -687,6 +757,7 @@ def phase_kernel_ssd() -> dict:
     import torch
     from repro_torch.kernels.ssd_scan import (ssd_chunked_dA, ssd_scan_cuda,
                                               ssd_scan_ref)
+    from repro_torch.kernels.ssd_scan.kernel import LAUNCHES_PER_CALL
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = []
@@ -711,6 +782,7 @@ def phase_kernel_ssd() -> dict:
             torch.cuda.synchronize()
             py, ps = ssd_scan_ref(xx, dt, dA, bb, cc, chunk=chunk)
             rows.append(dict(case=list(case), dtype=str(dtype)[6:],
+                             route=ssd_scan_cuda.last_route,
                              **_ssd_check(f"{case} {dtype}", y, s, py, ps,
                                           0.0)))
     # chunk invariance: the reference's case, chunk 16 against 64
@@ -729,11 +801,15 @@ def phase_kernel_ssd() -> dict:
               "path inputs are strided views")
         fn = lambda: ssd_scan_cuda(x, dt, dA, B, C, chunk=256)  # noqa: E731
         y, s = fn()
+        route = ssd_scan_cuda.last_route
         torch.cuda.synchronize()
+        check(route == ("tensor-core" if dtype == torch.bfloat16
+                        else "f32-core"), f"{name} path inputs took the "
+              f"{route} route")
         plain = lambda: ssd_chunked_dA(x, dt, dA, B, C, 256)  # noqa: E731
         py, ps = plain()
         row = _ssd_check(f"path {name}", y, s, py, ps, SSD_REL)
-        rows.append(dict(case="path", dtype=name, **row))
+        rows.append(dict(case="path", dtype=name, route=route, **row))
         del py, ps
         # the same rows as contiguous flat copies: bit for bit
         b, l, h, g, p, n, _ = SSD_PATH
@@ -749,9 +825,12 @@ def phase_kernel_ssd() -> dict:
               f"contiguous flat copies ({name})")
         del fy, fs
         nbytes, ops = _ssd_work(SSD_PATH, x.element_size())
+        launches = _device_us_by_kernel(fn, ("ssd_",), 10)
         res[name] = dict(
+            route=route, launches_per_call=LAUNCHES_PER_CALL[route],
             kernel_us=cuda_ms(fn, 20) * 1e3,
-            kernel_device_us=_device_us_per_call(fn, ("ssd_",), 10),
+            kernel_device_us=sum(launches.values()) if launches else None,
+            launch_device_us=launches,
             plain_us=cuda_ms(plain, 3, warmup=1) * 1e3,
             max_abs_err=row["y_max_abs_err"], **_bound(
                 nbytes, ops, BF16_TENSOR_OPS_PER_S
@@ -768,17 +847,20 @@ def phase_kernel_ssd() -> dict:
     long_row = _ssd_check("b 1, l 32,768", y, s, py, ps, SSD_REL)
     del py, ps
     nbytes, ops = _ssd_work(long, 2)
-    long_row.update(shape=list(long), kernel_us=cuda_ms(fn, 3, 1) * 1e3,
+    long_row.update(shape=list(long), route=ssd_scan_cuda.last_route,
+                    kernel_us=cuda_ms(fn, 3, 1) * 1e3,
                     bound_us=_bound(nbytes, ops, BF16_TENSOR_OPS_PER_S)[
                         "bound_ms"] * 1e3)
     del x, dt, dA, B, C, y, s
 
+    res["bfloat16"]["issued_floor_ms"] = (
+        _ssd_issued(SSD_PATH) / BF16_TENSOR_OPS_PER_S * 1e3)
     out = dict(res["bfloat16"], shape=dict(
         x=[SSD_PATH[0], SSD_PATH[1], SSD_PATH[2], SSD_PATH[4]],
         B=[SSD_PATH[0], SSD_PATH[1], SSD_PATH[3], SSD_PATH[5]],
         chunk=SSD_PATH[6], dtype="bfloat16", layout="model-layout views"),
         library_us=None, library=None, f32=res["float32"], long=long_row,
-        launches_per_call=3, cases=rows)
+        cases=rows)
     emit("kernel", name="ssd_scan", **out)
     return out
 
@@ -1320,6 +1402,9 @@ def phase_serve(counters: dict, phase: str) -> None:
     logits, plain, t_prefill, t_plain, launches, diff = _prefill_pair(
         api, params, batch, counted, wrappers, kernel, band)
     counters[kernel] = launches[kernel]
+    route = wrappers[kernel].last_route
+    check(route == "tensor-core", f"the bf16 prefill took the {route} "
+          f"route of {kernel}")
     top2 = plain.topk(2, dim=-1).values
     margin = top2[:, 0] - top2[:, 1]
     clear = margin > band[cfg.dtype]
@@ -1352,6 +1437,9 @@ def phase_serve(counters: dict, phase: str) -> None:
     params32 = api32.init_params(0)
     _, plain32, t32, t32_plain, _, diff32 = _prefill_pair(
         api32, params32, batch, counted, wrappers, kernel, band)
+    route32 = wrappers[kernel].last_route
+    check(route32 == "f32-core", f"the f32 prefill took the {route32} "
+          f"route of {kernel}")
     if kernel == "ssd_scan":
         extra["f32_plain_half_chunk_logits_max_abs_diff"] = _chunk_floor(
             api32, params32, batch, plain32)
@@ -1361,6 +1449,7 @@ def phase_serve(counters: dict, phase: str) -> None:
          prefill_shape=list(tokens.shape), prefill_s=t_prefill,
          prefill_tokens_per_s=tokens.numel() / t_prefill,
          prefill_kernel=kernel, prefill_launches=counters[kernel],
+         prefill_route=route, f32_prefill_route=route32,
          prefill_plain_s=t_plain,
          prefill_plain_tokens_per_s=tokens.numel() / t_plain,
          logits_max_abs_diff=diff, logit_band=band[cfg.dtype],
@@ -1429,10 +1518,15 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     phase_build()
     counters: dict = {}
-    results = {name: fn() for name, fn in _phases(counters).items()
-               if only is None or name in only}
+    results, phase_s = {}, {}
+    for name, fn in _phases(counters).items():
+        if only is None or name in only:
+            t0 = time.perf_counter()
+            results[name] = fn()
+            phase_s[name] = time.perf_counter() - t0
     if only is not None:
-        emit("done", seconds=time.perf_counter() - t_start, only=only)
+        emit("done", seconds=time.perf_counter() - t_start, only=only,
+             phase_seconds=phase_s)
         return 0
     kern = {**results["kernel"], "flash_attention": results["kernel_flash"],
             "ssd_scan": results["kernel_ssd"]}
@@ -1476,7 +1570,7 @@ def main(argv=None) -> int:
             "library_ms": (None if k["library_us"] is None
                            else k["library_us"] / 1e3),
             "library": k["library"], "check": how})
-    emit("done", seconds=time.perf_counter() - t_start,
+    emit("done", seconds=time.perf_counter() - t_start, phase_seconds=phase_s,
          campaign_ms_per_step=results["campaign"]["ms_per_step"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -3,8 +3,9 @@
 Each ``<kernel>/csrc/<kernel>.cu`` exposes a plain C interface, so ``nvcc``
 compiles it without PyTorch's headers in seconds.  Libraries go to
 ``build/torch_kernels/`` at the repository root (ignored by git), named by
-a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused.  ``build`` starts one ``nvcc`` per missing source,
+a hash of every file in the source's ``csrc/`` directory (the ``.cu`` and
+any header it includes) and the flags, so an edited source or header
+rebuilds and an unchanged one is reused.  ``build`` starts one ``nvcc`` per missing source,
 all at once.
 """
 
@@ -49,9 +50,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where kernel ``name``'s library is built: named by a hash of every
+    file of its ``csrc/`` directory, names and contents, and the flags."""
+    h = hashlib.sha256()
+    for path in sorted(p for p in SOURCES[name].parent.iterdir()
+                       if p.is_file()):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> dict:

@@ -2,7 +2,10 @@
 
 ``flash_attention_cuda`` launches ``csrc/flash_attention.cu`` on CUDA
 tensors and counts its launches; the plain versions for CPU tensors are
-in ``ref.py``.
+in ``ref.py``.  The C entry picks the kernel from its arguments: bf16
+inputs at head dims 64 and 128 with 16-byte aligned rows go to the
+tensor-core kernel, everything else to the f32-core one
+(``flash_attention_cuda.last_route`` says which ran last).
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from repro_torch.kernels import _build
 
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (32, 64, 128, 256)
+#: the C entry's route codes
+ROUTES = ("f32-core", "tensor-core")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -22,7 +27,7 @@ def _lib():
     i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
     return _build.function("flash_attention", "flash_attention_launch", [
         p, p, p, p, i, i, i, i, i, i, i, ll, ll, ll, ll, ll, ll, ll, ll, ll,
-        i, ctypes.c_float, p])
+        i, ctypes.c_float, p, ctypes.POINTER(i)])
 
 
 def _check(q, k, v):
@@ -60,23 +65,27 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
     place through their other strides.  Causal is top-left: query i sees
     keys 0..i.  Returns [b, sq, h, hd] in q's dtype on the caller's
     current stream (no synchronisation).  Counts each call in
-    ``flash_attention_cuda.launches``."""
+    ``flash_attention_cuda.launches`` and records the kernel that ran in
+    ``flash_attention_cuda.last_route`` (one of ``ROUTES``)."""
     _check(q, k, v)
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     launch = _lib()
+    route = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      _DTYPES[q.dtype], b, sq, sk, h, kv, hd,
                      *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                     int(causal), hd ** -0.5, stream)
+                     int(causal), hd ** -0.5, stream, ctypes.byref(route))
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.last_route = ROUTES[route.value]
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.last_route = None

@@ -2,8 +2,11 @@
 
 ``ssd_scan_cuda`` launches ``csrc/ssd_scan.cu`` on CUDA tensors and counts
 its calls; the plain versions for CPU tensors are in ``ref.py``.  One call
-is three kernel launches from one C entry (the chunks' own states, the
-scan over chunks, the outputs) and counts once.
+is several kernel launches from one C entry and counts once: for f32
+inputs three on the f32 cores (the chunks' own states, the scan over
+chunks, the outputs), for bf16 inputs four on the tensor cores (C.B once
+per group and chunk, then the same three).
+``ssd_scan_cuda.last_route`` says which ran last.
 """
 
 from __future__ import annotations
@@ -16,13 +19,18 @@ from repro_torch.kernels import _build
 
 #: the longest chunk the kernel takes (its per-chunk cumsum is one block)
 MAX_CHUNK = 256
+#: the C entry's route codes
+ROUTES = ("f32-core", "tensor-core")
+#: kernel launches per call, by route
+LAUNCHES_PER_CALL = {"f32-core": 3, "tensor-core": 4}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _lib():
     i, p = ctypes.c_int, ctypes.c_void_p
     return _build.function("ssd_scan", "ssd_scan_launch", [
-        p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p, p])
+        p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p, p, p, p,
+        ctypes.POINTER(i)])
 
 
 def _head_major(t, flat: bool):
@@ -86,8 +94,12 @@ def ssd_scan_cuda(x, dt, dA, B, C, *, chunk: int = 256):
     dimension, read in place through their other strides; dt, dA: f32,
     any strides.  ``chunk`` is clipped to l.  Returns (y f32 in x's layout,
     final state f32 [bh, p, n] or [b, h, p, n]) on the caller's current
-    stream (no synchronisation).  Counts each call in
-    ``ssd_scan_cuda.launches``."""
+    stream (no synchronisation).  bf16 inputs take the tensor-core route
+    (with scratch for C.B, [b, g, l / chunk, chunk, chunk] f32, and for the
+    split entering states, [2, b h, l / chunk, p, n] bf16), f32 inputs the
+    f32-core one.  Counts each call in
+    ``ssd_scan_cuda.launches`` and records the route in
+    ``ssd_scan_cuda.last_route``."""
     chunk = min(chunk, x.shape[1])
     xv, dtv, dAv, bv, cv = _check(x, dt, dA, B, C, chunk)
     y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
@@ -99,20 +111,31 @@ def ssd_scan_cuda(x, dt, dA, B, C, *, chunk: int = 256):
     states = torch.empty((b * h, nc, p, n), dtype=torch.float32,
                          device=x.device)
     decay = torch.empty((b * h, nc), dtype=torch.float32, device=x.device)
+    cb = prev = None
+    if x.dtype == torch.bfloat16:
+        cb = torch.empty((b, g, nc, chunk, chunk), dtype=torch.float32,
+                         device=x.device)
+        prev = torch.empty((2, b * h, nc, p, n), dtype=torch.bfloat16,
+                           device=x.device)
     strides = (ctypes.c_longlong * 18)(*(
         s for t in (xv, dtv, dAv, bv, cv, yv) for s in t.stride()[:3]))
     launch = _lib()
+    route = ctypes.c_int(-1)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = launch(x.data_ptr(), dt.data_ptr(), dA.data_ptr(),
                      B.data_ptr(), C.data_ptr(), y.data_ptr(),
                      state.data_ptr(), states.data_ptr(), decay.data_ptr(),
                      _DTYPES[x.dtype], b, h, g, l, p, n, chunk, strides,
-                     stream)
+                     stream, None if cb is None else cb.data_ptr(),
+                     None if prev is None else prev.data_ptr(),
+                     ctypes.byref(route))
     if err != 0:
         raise RuntimeError(f"ssd scan kernel launch failed: CUDA error {err}")
     ssd_scan_cuda.launches += 1
+    ssd_scan_cuda.last_route = ROUTES[route.value]
     return y, (state.reshape(b * h, p, n) if x.dim() == 3 else state)
 
 
 ssd_scan_cuda.launches = 0
+ssd_scan_cuda.last_route = None

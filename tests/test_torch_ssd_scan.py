@@ -5,7 +5,11 @@ and the kernel's dispatch and wrapper checks.
 
 On the CPU the port's dispatch runs the plain version; the CUDA kernel is
 held against it on the card (the ``gpu`` tests below, and
-``chip_smoke.py``'s ``kernel_ssd`` phase).  Band: the reference's own
+``chip_smoke.py``'s ``kernel_ssd`` phase).  The tensor-core route's
+arithmetic (bf16 products with f32 sums, each derived f32 operand --
+L o CB, the state entering a chunk, B w -- split into hi = bf16(a) and
+lo = bf16(a - hi)) is emulated in plain torch here and held to the same
+bands.  Band: the reference's own
 kernel contract, atol 2e-4 (the two sides sum the same f32 products in
 other orders).  The model-layout ``ssd_chunked`` is held to the
 reference's at rtol 1e-5 / atol 1e-5.
@@ -156,6 +160,96 @@ def test_plain_version_handles_a_long_decay_without_nan():
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=ATOL)
 
 
+def _halves(a, split):
+    hi = a.bfloat16().float()
+    return (hi, (a - hi).bfloat16().float()) if split else (hi,)
+
+
+def _ssd_split(x, dt, dA, B, C, chunk, split=True):
+    """Plain-torch emulation of the tensor-core route on the flat layout:
+    C.B once per group row and chunk, then per head row and chunk
+    y_diag = (L o CB dt) x, y_off = exp(cum_i) C_i . prev^T and the own
+    state x^T (B w), each a sum of bf16 products in f32 with the derived
+    operand split in two (without ``split``, rounded once to bf16)."""
+    bh, l, p = x.shape
+    bg, _, n = B.shape
+    rep = bh // bg
+    xf, Bf, Cf = x.float(), B.float(), C.float()
+    y = torch.zeros(bh, l, p)
+    state = torch.zeros(bh, p, n)
+    i = torch.arange(chunk)
+    tri = i[:, None] >= i[None, :]
+    for r in range(bh):
+        prev = torch.zeros(p, n)
+        for c0 in range(0, l, chunk):
+            sl = slice(c0, c0 + chunk)
+            xc, Bc, Cc, dtc = xf[r, sl], Bf[r // rep, sl], Cf[r // rep, sl], \
+                dt[r, sl]
+            cum = torch.cumsum(dA[r, sl], 0)
+            L = torch.where(tri, torch.exp(torch.where(
+                tri, cum[:, None] - cum[None, :], 0.0)), 0.0)
+            M = (Cc @ Bc.T) * L * dtc[None, :]
+            y[r, sl] = (sum(m @ xc for m in _halves(M, split))
+                        + sum(Cc @ h.T for h in _halves(prev, split))
+                        * torch.exp(cum)[:, None])
+            w = torch.exp(cum[-1] - cum) * dtc
+            own = sum(xc.T @ h for h in _halves(Bc * w[:, None], split))
+            prev = prev * torch.exp(cum[-1]) + own
+        state[r] = prev
+    return y, state
+
+
+def _bf16_inputs(arrs):
+    """x, B, C rounded to bf16 (what the tensor-core route reads) as f32
+    arrays, dt and dA as they are."""
+    x, dt, dA, B, C = arrs
+    rnd = [torch.from_numpy(a).bfloat16().float().numpy() for a in (x, B, C)]
+    return rnd[0], dt, dA, rnd[1], rnd[2]
+
+
+@pytest.mark.parametrize("bh,l,p,n,rep,chunk", SWEEP)
+def test_split_operand_arithmetic_matches_reference(bh, l, p, n, rep, chunk):
+    """bf16 inputs through the tensor-core route's arithmetic stay within
+    the reference's atol 2e-4 of its oracle (2.5e-5 at most here)."""
+    arrs = _bf16_inputs(_inputs(bh, l, p, n, rep, 9))
+    y, s = _ssd_split(*_t(arrs), chunk)
+    ry, rs = j_ssd_scan_ref(*map(jnp.asarray, arrs), chunk=chunk)
+    np.testing.assert_allclose(y.numpy(), np.asarray(ry), atol=ATOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(rs), atol=ATOL)
+
+
+@pytest.mark.parametrize("split", [True, False])
+def test_derived_operands_need_the_split(split):
+    """At the mamba2 path's magnitudes (silu'd x, B, C; one group of 8
+    heads; l 1,024, p 64, n 128, chunk 256) the split uses under a tenth
+    of the card's band, 2e-4 + 1e-4 max |ref|, against the reference's
+    oracle; the derived operands rounded once to bf16 miss it more than
+    ten times over, and miss atol 2e-4 at the reference's shapes too."""
+    rng = np.random.default_rng(1)
+    l, h, p, n = 1024, 8, 64, 128
+    xbc = rng.standard_normal((l, h * p + 2 * n))
+    xbc = (xbc / (1 + np.exp(-xbc))).astype(np.float32)
+    x = np.ascontiguousarray(xbc[:, :h * p].reshape(l, h, p).transpose(1, 0, 2))
+    B = np.ascontiguousarray(xbc[None, :, h * p:h * p + n])
+    C = np.ascontiguousarray(xbc[None, :, h * p + n:])
+    dt = np.logaddexp(rng.standard_normal((h, l)), 0).astype(np.float32)
+    A = -np.exp(0.3 * rng.standard_normal(h)).astype(np.float32)
+    arrs = _bf16_inputs((x, dt, (dt * A[:, None]).astype(np.float32), B, C))
+    y, s = _ssd_split(*_t(arrs), 256, split)
+    ry, rs = map(np.asarray, j_ssd_scan_ref(*map(jnp.asarray, arrs),
+                                            chunk=256))
+    used = [np.abs(a - b).max() / (2e-4 + 1e-4 * np.abs(b).max())
+            for a, b in ((y.numpy(), ry), (s.numpy(), rs))]
+    if split:
+        assert max(used) < 0.1
+    else:
+        assert min(used) > 10.0
+        small = _bf16_inputs(_inputs(*SWEEP[0][:5], 9))
+        sy, _ = _ssd_split(*_t(small), SWEEP[0][5], split)
+        sry, _ = j_ssd_scan_ref(*map(jnp.asarray, small), chunk=SWEEP[0][5])
+        assert np.abs(sy.numpy() - np.asarray(sry)).max() > ATOL
+
+
 # --------------------------------------------------------- card (skip here)
 
 def _card():
@@ -197,3 +291,43 @@ def test_kernel_reads_model_layout_views_on_card():
     ry, rs = ssd_chunked_dA(x, dt, dt * -0.5, B, C, 32)
     torch.testing.assert_close(y, ry, atol=ATOL, rtol=0)
     torch.testing.assert_close(s, rs, atol=ATOL, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bh,l,p,n,rep,chunk", SWEEP + [
+    (2, 200, 20, 36, 2, 100), (3, 96, 72, 24, 3, 96)])
+def test_routes_on_card(bh, l, p, n, rep, chunk, dtype):
+    """bf16 x, B, C take the tensor-core launches and f32 the f32-core
+    ones, both within atol 2e-4 of the plain version (shapes include
+    rows that are not 16-byte aligned and ragged tiles)."""
+    dev = _card()
+    x, dt, dA, B, C = _t(_inputs(bh, l, p, n, rep, 11))
+    x, B, C = (t.to(dev, getattr(torch, dtype)) for t in (x, B, C))
+    dt, dA = dt.to(dev), dA.to(dev)
+    y, s = ssd_scan_cuda(x, dt, dA, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan_cuda.last_route == (
+        "tensor-core" if dtype == "bfloat16" else "f32-core")
+    ry, rs = ssd_scan_ref(x, dt, dA, B, C, chunk=chunk)
+    torch.testing.assert_close(y, ry, atol=ATOL, rtol=0)
+    torch.testing.assert_close(s, rs, atol=ATOL, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_path_widths_on_card(dtype):
+    """At the path's p 64, n 128 and chunk 256, |cum| grows over the
+    chunk and the two summation orders of the cumsum move exp(cum_i -
+    cum_j) by a few 1e-5 of itself: both routes within 2e-4 + 1e-4
+    max |plain|, the band ``chip_smoke.py`` holds the path shape to."""
+    dev = _card()
+    x, dt, dA, B, C = _t(_inputs(4, 512, 64, 128, 4, 12))
+    x, B, C = (t.to(dev, getattr(torch, dtype)) for t in (x, B, C))
+    dt, dA = dt.to(dev), dA.to(dev)
+    y, s = ssd_scan_cuda(x, dt, dA, B, C, chunk=256)
+    torch.cuda.synchronize()
+    ry, rs = ssd_scan_ref(x, dt, dA, B, C, chunk=256)
+    for out, ref in ((y, ry), (s, rs)):
+        band = ATOL + 1e-4 * float(ref.abs().max())
+        assert float((out - ref).abs().max()) <= band
