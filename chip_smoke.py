@@ -10,8 +10,11 @@ Phases, each printing one JSON line:
   kernel       every kernel against its plain torch version
                (``torch.equal``; EP's sums within rtol 1e-6) at the shapes
                the paths give it and at edge cases; kth_free also against
-               the sort oracle.  Kernel / device / plain / library times
-               and the bound, one line per kernel
+               the sort oracle; EP's draw pass [16, 2, 2^16] into a
+               non-zero carry and against its per-batch calls.  Kernel
+               (events, back to back) / host (enqueue, no sync) / device /
+               plain / library times, the bound and the launch floor (a
+               1-element ``add_``), one line per kernel
   kernel_flash the flash attention kernel against its blocked plain version
                and the plain-softmax oracle (atol 3e-5 in f32, 3e-2 in
                bf16, and bf16 also within 2 bf16 ulps of |ref| + 1e-4) at
@@ -84,6 +87,7 @@ debugging on the card, and prints no result lines.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -137,6 +141,36 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def host_us(fn, iters: int, warmup: int = 3) -> float:
+    """Mean host microseconds per call of ``fn`` over ``iters`` calls with
+    no synchronisation between them: the enqueue cost alone (the device
+    finishes after the clock stops)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / iters * 1e6
+
+
+@functools.cache
+def launch_floor() -> dict:
+    """The least a launch costs in this process: per-call (CUDA events over
+    back-to-back calls), host and device µs of a 1-element elementwise op,
+    ``x.add_(1)`` on ``x = torch.ones(1, device="cuda")``."""
+    import torch
+    x = torch.ones(1, device="cuda")
+    fn = lambda: x.add_(1)  # noqa: E731
+    return dict(launch_floor_us=cuda_ms(fn, 2000) * 1e3,
+                launch_floor_host_us=host_us(fn, 2000),
+                launch_floor_device_us=_device_us_per_call(
+                    fn, ("elementwise_kernel",)))
 
 
 def _device_us_by_kernel(fn, names, iters: int = 200) -> dict:
@@ -266,15 +300,18 @@ def phase_kernel() -> dict:
         max_err = max(max_err, float((out - twin).abs().max()))
 
     def timings(free, nreq):
-        """Kernel, device, twin and sort+gather times and the bound of
-        one shape: each input byte read once, each output written once;
-        32 compare-and-count passes over every key."""
+        """Kernel, host, device, twin and sort+gather times and the bound
+        of one shape: each input byte read once, each output written once;
+        32 compare-and-count passes over every key (the radix select's
+        work: fewer than the rank kernel's n compares per key)."""
         n, rows = free.shape[-1], nreq.numel()
         idx = (nreq.long() - 1).clamp(0, n - 1).unsqueeze(-1)
         t = dict(
             kernel_us=cuda_ms(lambda: kth_free_cuda(free, nreq), 2000) * 1e3,
+            host_us=host_us(lambda: kth_free_cuda(free, nreq), 2000),
             kernel_device_us=_device_us_per_call(
-                lambda: kth_free_cuda(free, nreq), ("kth_free",)),
+                lambda: kth_free_cuda(free, nreq),
+                ("kth_free_rank", "kth_free_smem")),
             plain_us=cuda_ms(lambda: radix_select_kth(free, nreq), 50) * 1e3,
             library_us=cuda_ms(lambda: torch.sort(free, -1).values.gather(
                 -1, idx), 500) * 1e3)
@@ -289,7 +326,7 @@ def phase_kernel() -> dict:
                easy={k: v for k, v in timings(*cases["easy"]).items()
                      if k not in ("bytes", "ops")},
                max_abs_err=max_err, cases=sorted(cases),
-               launches_so_far=kth_free_cuda.launches)
+               launches_so_far=kth_free_cuda.launches, **launch_floor())
     emit("kernel", name="kth_free", **res)
     return res
 
@@ -300,10 +337,14 @@ def _pairs(n, gen, dev):
 
 
 def phase_kernel_ep() -> dict:
-    """The CUDA EP kernel against its plain version: the workload's batch
-    [2, 2^16], a wide [2, 2^22] call and edge pairs."""
+    """The CUDA EP kernel against its plain version: the workload's draw
+    pass [16, 2, 2^16] into a non-zero carry (and against 16 per-batch
+    calls added into the same carry), ragged passes, a pass of more
+    batches than one finish step, the per-batch call [2, 2^16], a wide
+    [2, 2^22] call and edge pairs."""
     import torch
-    from repro_torch.kernels.ep import ep_pairs_cuda, ep_pairs_ref
+    from repro_torch.kernels.ep import (ep_pairs_cuda, ep_pairs_ref,
+                                        ep_pass_cuda, ep_pass_ref)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     edges = torch.tensor(
@@ -314,10 +355,10 @@ def phase_kernel_ep() -> dict:
     cases = {"batch": _pairs(2 ** 16, gen, dev),
              "wide": _pairs(2 ** 22, gen, dev), "edges": edges}
     max_err, sums_equal = 0.0, True
-    for name, u in cases.items():
-        h, s = ep_pairs_cuda(u)
-        torch.cuda.synchronize()
-        h2, s2 = ep_pairs_ref(u)
+
+    def compare(name, got, want):
+        nonlocal max_err, sums_equal
+        (h, s), (h2, s2) = got, want
         check(torch.equal(h, h2), f"ep kernel hist != plain ({name})")
         check(bool(torch.isclose(s, s2, rtol=1e-6, atol=0.0,
                                  equal_nan=True).all()),
@@ -326,25 +367,68 @@ def phase_kernel_ep() -> dict:
         sums_equal &= bool(((s == s2) | (s.isnan() & s2.isnan())).all())
         if bool(torch.isfinite(s2).all()):
             max_err = max(max_err, float((s - s2).abs().max()))
+
+    for name, u in cases.items():
+        got = ep_pairs_cuda(u)
+        torch.cuda.synchronize()
+        compare(name, got, ep_pairs_ref(u))
     check(float(ep_pairs_cuda(edges)[0].sum()) == 9.0,
           "ep edge pairs: 9 of 13 accepted (t == 0 and t > 1 rejected)")
+
+    # the draw pass of the class A run, into a carry whose counts are past
+    # 2^24 (so the f32 adds round); ragged passes (n not a multiple of 4:
+    # scalar loads, one pair a thread, below and above 2^20 pairs); more
+    # batches than one finish step holds
+    passes = {name: torch.rand(shape, generator=gen, device=dev) * 2 - 1
+              for name, shape in (("draw_pass", (16, 2, 2 ** 16)),
+                                  ("ragged_pass", (5, 2, 1001)),
+                                  ("ragged_wide_pass", (16, 2, 65539)),
+                                  ("many_batches_pass", (40, 2, 4096)))}
+    draw = passes["draw_pass"]
+    hist0 = torch.arange(10, device=dev, dtype=torch.float32) * 1e6 + 2 ** 24
+    sums0 = torch.tensor([123.25, -4567.5], device=dev)
+    for name, u in passes.items():
+        got = ep_pass_cuda(u, hist0.clone(), sums0.clone())
+        torch.cuda.synchronize()
+        compare(name, got, ep_pass_ref(u, hist0.clone(), sums0.clone()))
+    # one pass == its batches one call each, added into the carry in order
+    h, s = hist0.clone(), sums0.clone()
+    for ub in draw:
+        hb, sb = ep_pairs_cuda(ub)
+        h, s = h + hb, s + sb
+    compare("pass_vs_batches", ep_pass_cuda(draw, hist0.clone(),
+                                            sums0.clone()), (h, s))
+
+    def timings(fn, plain):
+        by_kernel = _device_us_by_kernel(fn, ("ep_partial", "ep_finish"))
+        return dict(kernel_us=cuda_ms(fn, 2000) * 1e3,
+                    host_us=host_us(fn, 2000),
+                    kernel_device_us=(sum(by_kernel.values()) if by_kernel
+                                      else None),
+                    device_us_by_kernel=by_kernel,
+                    plain_us=cuda_ms(plain, 20) * 1e3)
+
+    hist, sums = hist0.clone(), sums0.clone()
+    nb, n = draw.shape[0], draw.shape[2]
+    res = dict(shape=list(draw.shape),
+               **timings(lambda: ep_pass_cuda(draw, hist, sums),
+                         lambda: ep_pass_ref(draw, hist, sums)),
+               library_us=None, library=None)
+    # per pair: 2 muls, 1 add, 2 compares, log, mul, div, sqrt, 2 muls,
+    # 2 abs, max, convert, clip, count, 2 adds = 20 operations; 8 bytes
+    # read; the 12 f32 carries read and written
+    res.update(_bound(8 * nb * n + 96, 20 * nb * n))
     u = cases["batch"]
-    n = u.shape[1]
-    res = dict(shape=list(u.shape),
-               kernel_us=cuda_ms(lambda: ep_pairs_cuda(u), 2000) * 1e3,
-               kernel_device_us=_device_us_per_call(
-                   lambda: ep_pairs_cuda(u), ("ep_partial", "ep_finish")),
-               plain_us=cuda_ms(lambda: ep_pairs_ref(u), 200) * 1e3,
-               library_us=None, library=None,
-               wide_shape=list(cases["wide"].shape),
+    batch = dict(shape=list(u.shape),
+                 **timings(lambda: ep_pairs_cuda(u), lambda: ep_pairs_ref(u)),
+                 **{k: v for k, v in _bound(8 * n + 48, 20 * n).items()
+                    if k in ("bound_ms", "bound_by")})
+    res.update(batch=batch, wide_shape=list(cases["wide"].shape),
                wide_kernel_us=cuda_ms(lambda: ep_pairs_cuda(cases["wide"]),
                                       200) * 1e3,
                max_abs_err=max_err, sums_equal=sums_equal,
-               cases=sorted(cases))
-    # per pair: 2 muls, 1 add, 2 compares, log, mul, div, sqrt, 2 muls,
-    # 2 abs, max, convert, clip, count, 2 adds = 20 operations; 8 bytes
-    # read; 48 bytes written
-    res.update(_bound(8 * n + 48, 20 * n))
+               cases=sorted(cases) + sorted(passes) + ["pass_vs_batches"],
+               **launch_floor())
     emit("kernel", name="ep", **res)
     return res
 
@@ -395,7 +479,7 @@ def phase_kernel_is() -> dict:
                global_kernel_us=cuda_ms(lambda: key_histogram_cuda(
                    cases["global_atomics"][0], n_buckets=big_nb,
                    bucket_shift=0), 50) * 1e3,
-               max_abs_err=0.0, cases=sorted(cases))
+               max_abs_err=0.0, cases=sorted(cases), **launch_floor())
     # per key: shift, 2 compares, 1 atomic add; 4 bytes read; n_buckets
     # f32 written
     res.update(_bound(4 * n + 4 * nb, 4 * n))
@@ -453,7 +537,8 @@ def phase_kernel_stencil() -> dict:
                big_bound_us=_bound(8 * big.numel(), 8 * big.numel())[
                    "bound_ms"] * 1e3,
                max_abs_err=0.0,
-               cases=[list(s) for s in grids] + ["coefs", "dirichlet"])
+               cases=[list(s) for s in grids] + ["coefs", "dirichlet"],
+               **launch_floor())
     # per point: 6 adds, 2 muls (the reference's flop count says 13 with
     # the neighbour loads); 4 bytes read and 4 written
     res.update(_bound(8 * pts, 8 * pts))
@@ -1061,13 +1146,13 @@ def phase_cross_device() -> None:
 
 def _wrappers() -> dict:
     """Every kernel wrapper of the port, by kernel name."""
-    from repro_torch.kernels.ep import ep_pairs_cuda
+    from repro_torch.kernels.ep import ep_pass_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.is_hist import key_histogram_cuda
     from repro_torch.kernels.kth_free import kth_free_cuda
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
     from repro_torch.kernels.stencil3d import stencil7_cuda
-    return {"kth_free": kth_free_cuda, "ep": ep_pairs_cuda,
+    return {"kth_free": kth_free_cuda, "ep": ep_pass_cuda,
             "is_hist": key_histogram_cuda, "stencil7": stencil7_cuda,
             "flash_attention": flash_attention_cuda,
             "ssd_scan": ssd_scan_cuda}
@@ -1075,8 +1160,10 @@ def _wrappers() -> dict:
 
 def _expected_launches(name, size):
     """(kernel, launches) of one run of program ``name`` at ``size``."""
-    if name == "EP":
-        return "ep", 2 ** (size["ep_m"] - 16)             # batch_pow 16
+    if name == "EP":                                      # batch_pow 16
+        from repro_torch.workloads.ep import _DRAW_PAIRS
+        per_draw = max(1, _DRAW_PAIRS // 2 ** 16)
+        return "ep", -(-2 ** (size["ep_m"] - 16) // per_draw)  # draw passes
     if name == "IS":
         return "is_hist", 10                              # iterations
     iters = size["cfd_iters"]
@@ -1536,7 +1623,8 @@ def main(argv=None) -> int:
                      "torch.equal vs twin and sort"),
         "ep": ("src/repro_torch/kernels/ep/csrc/ep.cu",
                "src/repro/kernels/ep/kernel.py:60",
-               "hist torch.equal vs plain; sums rtol 1e-6"),
+               "hist torch.equal vs plain; sums rtol 1e-6; the draw pass "
+               "[16, 2, 2^16] into a carry"),
         "is_hist": ("src/repro_torch/kernels/is_hist/csrc/is_hist.cu",
                     "src/repro/kernels/is_hist/kernel.py:37",
                     "torch.equal vs plain"),
@@ -1565,6 +1653,7 @@ def main(argv=None) -> int:
             "max_abs_err": k["max_abs_err"], "ms": k["kernel_us"] / 1e3,
             "device_ms": (None if k["kernel_device_us"] is None
                           else k["kernel_device_us"] / 1e3),
+            "host_ms": (k["host_us"] / 1e3 if "host_us" in k else None),
             "plain_ms": k["plain_us"] / 1e3, "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"],
             "library_ms": (None if k["library_us"] is None

@@ -5,8 +5,9 @@ compiles it without PyTorch's headers in seconds.  Libraries go to
 ``build/torch_kernels/`` at the repository root (ignored by git), named by
 a hash of every file in the source's ``csrc/`` directory (the ``.cu`` and
 any header it includes) and the flags, so an edited source or header
-rebuilds and an unchanged one is reused.  ``build`` starts one ``nvcc`` per missing source,
-all at once.
+rebuilds and an unchanged one is reused.  ``build`` starts one ``nvcc``
+per missing source, all at once.  ``launch`` calls a C entry on a
+device's current stream.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 _HERE = Path(__file__).resolve().parent
 #: kernel name -> CUDA source
@@ -34,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 BUILD_DIR = _HERE.parents[2] / "build" / "torch_kernels"
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_raw_stream = None
 
 
 def nvcc() -> str:
@@ -107,3 +111,18 @@ def function(name: str, symbol: str, argtypes):
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return fn
+
+
+def launch(device: int, call) -> int:
+    """``call(stream)`` with the raw current stream of CUDA device
+    ``device`` (an index), entering that device only when it is not the
+    current one.  ``call`` passes the stream to a C entry, which launches
+    on it; returns what ``call`` returns, the entry's CUDA error code.
+    Every kernel wrapper of the port launches through here."""
+    global _raw_stream
+    if _raw_stream is None:
+        _raw_stream = torch._C._cuda_getCurrentRawStream
+    if device == torch.cuda.current_device():
+        return call(_raw_stream(device))
+    with torch.cuda.device(device):
+        return call(_raw_stream(device))

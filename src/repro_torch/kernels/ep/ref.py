@@ -3,7 +3,9 @@
 The same per-pair arithmetic as ``csrc/ep.cu`` in separate elementwise
 ops (no fused multiply-add), so each pair's deviates and annulus are
 bit-equal to the kernel's.  Counts are integers; the sums of X and Y are
-taken in float64 and rounded once to float32, as the kernel does.
+taken in float64 and rounded once to float32, as the kernel does.  Over a
+draw pass, each batch's f32 counts and sums are added into f32 carries in
+batch order, as the kernel and the reference's scan carry do.
 """
 
 import torch
@@ -30,3 +32,14 @@ def ep_pairs_ref(u):
     hist.index_add_(0, annulus, accept.to(torch.int64))
     sums = torch.stack([gx.double().sum(), gy.double().sum()])
     return hist.to(torch.float32), sums.to(torch.float32)
+
+
+def ep_pass_ref(u, hist, sums):
+    """u: [nb, 2, n] f32 uniforms; hist [10] and sums [2]: f32 carries.
+    Adds the batches' ``ep_pairs_ref`` results into the carries in place
+    in batch order and returns them."""
+    for ub in u:
+        h, s = ep_pairs_ref(ub)
+        hist.add_(h)
+        sums.add_(s)
+    return hist, sums

@@ -73,12 +73,11 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     launch = _lib()
     route = ctypes.c_int(-1)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     _DTYPES[q.dtype], b, sq, sk, h, kv, hd,
-                     *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                     int(causal), hd ** -0.5, stream, ctypes.byref(route))
+    err = _build.launch(q.get_device(), lambda stream: launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _DTYPES[q.dtype], b, sq, sk, h, kv, hd, *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], int(causal), hd ** -0.5, stream,
+        ctypes.byref(route)))
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA "
                            f"error {err}")

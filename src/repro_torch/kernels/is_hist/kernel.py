@@ -44,10 +44,9 @@ def key_histogram_cuda(keys, *, n_buckets: int, bucket_shift: int):
     counts = torch.empty(n_buckets, dtype=torch.int32, device=keys.device)
     out = torch.empty(n_buckets, dtype=torch.float32, device=keys.device)
     launch = _lib()
-    with torch.cuda.device(keys.device):
-        stream = torch.cuda.current_stream(keys.device).cuda_stream
-        err = launch(keys.data_ptr(), keys.shape[0], n_buckets, bucket_shift,
-                     counts.data_ptr(), out.data_ptr(), stream)
+    err = _build.launch(keys.get_device(), lambda stream: launch(
+        keys.data_ptr(), keys.shape[0], n_buckets, bucket_shift,
+        counts.data_ptr(), out.data_ptr(), stream))
     if err != 0:
         raise RuntimeError(f"is_hist kernel launch failed: CUDA error {err}")
     key_histogram_cuda.launches += 1

@@ -1,18 +1,18 @@
-"""Kth-free-time radix select: the CUDA kernel's wrapper and its plain
-torch twin.
+"""Kth-free-time select: the CUDA kernel's wrapper and its plain torch twin.
 
 The scheduler asks, for every system of every grid lane, when ``n_req``
 of its nodes are simultaneously free: the ``n_req``-th smallest entry of
 the node-free row.  Both versions map f32 times to order-preserving
-uint32 keys and walk the 32 bits MSB -> LSB, at each bit counting the
-candidates whose bit is 0 and descending into the half that holds rank k.
-The selected key is an element of the input, so both are bit-exact
-against the sort oracle (``ref.py``).
+uint32 keys, and the selected key is an element of the input, so both
+are bit-exact against the sort oracle (``ref.py``).
 
-``kth_free_cuda`` launches ``csrc/kth_free.cu`` (one warp per row,
-ballot/popcount counting) and only takes CUDA tensors; ``radix_select_kth``
-is the same algorithm in plain torch ops, used on CPU tensors and, on
-the card, only when ``force="torch"`` asks for it.
+``kth_free_cuda`` launches ``csrc/kth_free.cu`` and only takes CUDA
+tensors: rows of up to 256 nodes go to a rank-by-comparison kernel (one
+block per row), wider rows to a warp-per-row bit walk.
+``radix_select_kth`` walks the 32 bits MSB -> LSB in plain torch ops,
+counting at each bit the candidates whose bit is 0 and descending into
+the half that holds rank k; it runs on CPU tensors and, on the card,
+only when ``force="torch"`` asks for it.
 """
 
 from __future__ import annotations
@@ -59,14 +59,20 @@ def radix_select_kth(node_free, n_req):
     return _ordered_u32_to_f32(val)
 
 
+_launch = None
+
+
 def _lib():
-    return _build.function("kth_free", "kth_free_launch", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    global _launch
+    if _launch is None:
+        _launch = _build.function("kth_free", "kth_free_launch", [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    return _launch
 
 
 def kth_free_cuda(node_free, n_req):
-    """Launch the CUDA radix-select kernel.  node_free: [..., S, maxN] f32
+    """Launch the CUDA kth-free kernel.  node_free: [..., S, maxN] f32
     CUDA tensor; n_req: [..., S] int32 on the same device.  Returns
     [..., S] f32 on the caller's current stream (no synchronisation).
     Counts each launch in ``kth_free_cuda.launches``."""
@@ -76,27 +82,25 @@ def kth_free_cuda(node_free, n_req):
     if node_free.dtype != torch.float32 or n_req.dtype != torch.int32:
         raise TypeError(f"kth_free_cuda takes float32 node_free and int32 "
                         f"n_req, got {node_free.dtype} and {n_req.dtype}")
-    if n_req.device != node_free.device:
+    dev = node_free.get_device()
+    if n_req.get_device() != dev:
         raise ValueError("node_free and n_req must share a device")
-    if tuple(n_req.shape) != tuple(node_free.shape[:-1]):
+    if n_req.shape != node_free.shape[:-1]:
         raise ValueError(f"n_req shape {tuple(n_req.shape)} must be "
                          f"node_free's leading shape "
                          f"{tuple(node_free.shape[:-1])}")
     n = node_free.shape[-1]
     if n < 1:
         raise ValueError("node_free needs at least one node column")
-    free = node_free.contiguous()
-    nreq = n_req.contiguous()
-    out = torch.empty(free.shape[:-1], dtype=torch.float32,
-                      device=free.device)
+    free = node_free if node_free.is_contiguous() else node_free.contiguous()
+    nreq = n_req if n_req.is_contiguous() else n_req.contiguous()
+    out = torch.empty_like(nreq, dtype=torch.float32)
     rows = out.numel()
     if rows == 0:
         return out
-    launch = _lib()
-    with torch.cuda.device(free.device):
-        stream = torch.cuda.current_stream(free.device).cuda_stream
-        err = launch(free.data_ptr(), nreq.data_ptr(), out.data_ptr(),
-                     rows, n, stream)
+    fn = _launch or _lib()
+    err = _build.launch(dev, lambda stream: fn(
+        free.data_ptr(), nreq.data_ptr(), out.data_ptr(), rows, n, stream))
     if err != 0:
         raise RuntimeError(f"kth_free kernel launch failed: CUDA error "
                            f"{err}")

@@ -2,7 +2,7 @@
 
 Modes (``force``):
   cuda   — the hand-written CUDA kernel (CUDA tensors only)
-  torch  — the plain torch radix select (same algorithm, any device)
+  torch  — the plain torch radix select (any device)
   sort   — the ``torch.sort`` oracle
 
 Default: ``cuda`` for a CUDA tensor, ``torch`` for a CPU tensor.  All three

@@ -121,15 +121,12 @@ def ssd_scan_cuda(x, dt, dA, B, C, *, chunk: int = 256):
         s for t in (xv, dtv, dAv, bv, cv, yv) for s in t.stride()[:3]))
     launch = _lib()
     route = ctypes.c_int(-1)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = launch(x.data_ptr(), dt.data_ptr(), dA.data_ptr(),
-                     B.data_ptr(), C.data_ptr(), y.data_ptr(),
-                     state.data_ptr(), states.data_ptr(), decay.data_ptr(),
-                     _DTYPES[x.dtype], b, h, g, l, p, n, chunk, strides,
-                     stream, None if cb is None else cb.data_ptr(),
-                     None if prev is None else prev.data_ptr(),
-                     ctypes.byref(route))
+    err = _build.launch(x.get_device(), lambda stream: launch(
+        x.data_ptr(), dt.data_ptr(), dA.data_ptr(), B.data_ptr(),
+        C.data_ptr(), y.data_ptr(), state.data_ptr(), states.data_ptr(),
+        decay.data_ptr(), _DTYPES[x.dtype], b, h, g, l, p, n, chunk,
+        strides, stream, None if cb is None else cb.data_ptr(),
+        None if prev is None else prev.data_ptr(), ctypes.byref(route)))
     if err != 0:
         raise RuntimeError(f"ssd scan kernel launch failed: CUDA error {err}")
     ssd_scan_cuda.launches += 1

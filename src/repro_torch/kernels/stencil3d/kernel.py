@@ -38,10 +38,8 @@ def stencil7_cuda(u, *, coef_c: float = -6.0, coef_n: float = 1.0):
     out = torch.empty_like(u)
     nx, ny, nz = u.shape
     launch = _lib()
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = launch(u.data_ptr(), out.data_ptr(), nx, ny, nz, coef_c, coef_n,
-                     stream)
+    err = _build.launch(u.get_device(), lambda stream: launch(
+        u.data_ptr(), out.data_ptr(), nx, ny, nz, coef_c, coef_n, stream))
     if err != 0:
         raise RuntimeError(f"stencil7 kernel launch failed: CUDA error {err}")
     stencil7_cuda.launches += 1

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.ep import N_ANNULI, ep_pairs
+from repro_torch.kernels.ep import N_ANNULI, ep_pass
 from repro_torch.utils import prng
 
 FLOPS_PER_PAIR = 100.0   # transcendental-weighted (log, sqrt, div ~ dozens of flops)
@@ -25,8 +25,10 @@ _DRAW_PAIRS = 1 << 20
 def run_ep(m: int = 20, batch_pow: int = 16, seed: int = 0,
            force: str | None = None, device=None):
     """Returns dict(hist [10], sx, sy, n_pairs, accepted).  One kernel call
-    per batch; the running hist and sums are f32, as the reference's
-    carry (from m = 25 on the accepted count passes 2^24 and rounds)."""
+    per threefry pass of ``_DRAW_PAIRS`` pairs, which adds the pass's
+    batches in order into the running hist and sums: f32, as the
+    reference's carry (from m = 25 on the accepted count passes 2^24 and
+    rounds)."""
     dev = resolve_device(device)
     n = 1 << m
     bn = 1 << min(batch_pow, m)
@@ -34,17 +36,12 @@ def run_ep(m: int = 20, batch_pow: int = 16, seed: int = 0,
     keys = prng.fold_in(prng.key(seed, device=dev),
                         torch.arange(n_batches, device=dev))
     hist = torch.zeros(N_ANNULI, dtype=torch.float32, device=dev)
-    sx = torch.zeros((), dtype=torch.float32, device=dev)
-    sy = torch.zeros((), dtype=torch.float32, device=dev)
+    sums = torch.zeros(2, dtype=torch.float32, device=dev)
     per_draw = max(1, _DRAW_PAIRS // bn)
     for b0 in range(0, n_batches, per_draw):
         u = prng.uniform(keys[b0:b0 + per_draw], (2, bn), -1.0, 1.0)
-        for ub in u:
-            h, s = ep_pairs(ub, force=force)
-            hist = hist + h
-            sx = sx + s[0]
-            sy = sy + s[1]
-    return {"hist": hist, "sx": sx, "sy": sy, "n_pairs": n,
+        ep_pass(u, hist, sums, force=force)
+    return {"hist": hist, "sx": sums[0], "sy": sums[1], "n_pairs": n,
             "accepted": hist.sum()}
 
 

@@ -47,7 +47,8 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
 
 
 @pytest.mark.parametrize("path", [*sorted(PKG.rglob("*.py")),
-                                  ROOT / "chip_smoke.py"],
+                                  ROOT / "chip_smoke.py",
+                                  ROOT / "campaign_ab.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_reference(path):
     tree = ast.parse(path.read_text())

@@ -17,11 +17,14 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.kth_free import (kth_free_batched_ref,  # noqa: E402
                                     kth_free_pallas, kth_free_pallas_batched,
                                     kth_free_ref)
+from repro.kernels.kth_free import radix_select_kth as j_radix  # noqa: E402
 from repro_torch.kernels.kth_free import (kth_free_cuda,  # noqa: E402
                                           kth_free_time,
                                           kth_free_time_batched,
                                           radix_select_kth)
 from repro_torch.kernels.kth_free import kth_free_ref as t_ref  # noqa: E402
+from repro_torch.kernels.kth_free.kernel import (  # noqa: E402
+    _f32_to_ordered_u32, _ordered_u32_to_f32)
 
 BIG = 1e30
 
@@ -39,6 +42,32 @@ def _case(shape, seed, sentinel_row=False, negative=False):
         free.reshape(-1, shape[-1])[0] = BIG
     nreq = rng.integers(1, shape[-1] + 1, shape[:-1]).astype(np.int32)
     return free, nreq
+
+
+def _edge_case(n, seed=2):
+    """The edge rows of ``chip_smoke.py``'s kernel phase at width n: an
+    all-BIG row, ties, negative times, -0.5 every other column, and n_req
+    of 0, -7, n + 1 and 10^6 (clipped to [1, n])."""
+    free, nreq = _case((10, 4, n), seed)
+    rng = np.random.default_rng(seed + 1)
+    free[0] = BIG
+    free[1] = rng.integers(0, 3, free[1].shape).astype(np.float32)
+    free[2] = -rng.uniform(0, 1e3, free[2].shape).astype(np.float32)
+    free[3, :, ::2] = -0.5
+    nreq[4], nreq[5], nreq[6], nreq[7] = 0, -7, n + 1, 10 ** 6
+    return free, nreq
+
+
+def _rank_select(node_free, n_req):
+    """Plain torch emulation of the CUDA rank kernel (rows of up to 256
+    nodes): per key, lt = #{keys below it} on the order-preserving uint32
+    keys; the keys with lt < k are candidates and the largest of them is
+    the k-th smallest."""
+    n = node_free.shape[-1]
+    u = _f32_to_ordered_u32(node_free)
+    k = n_req.to(torch.int64).clamp(1, n).unsqueeze(-1)
+    lt = (u.unsqueeze(-2) < u.unsqueeze(-1)).sum(-1)
+    return _ordered_u32_to_f32(torch.where(lt < k, u, 0).amax(-1))
 
 
 def _port_modes(free, nreq):
@@ -95,6 +124,50 @@ def test_kth_free_grid_lanes_match_per_lane_reference():
         np.testing.assert_array_equal(out[b].numpy(), np.asarray(ref))
 
 
+@pytest.mark.parametrize("n", [20, 136, 1000])
+def test_rank_scheme_matches_sort_and_radix_on_edge_rows(n):
+    """The rank kernel's scheme, emulated, equals the port's sort oracle
+    and radix select and the reference's radix select on the edge rows,
+    bit for bit (the selected value is an input element)."""
+    free, nreq = _edge_case(n)
+    f, q = torch.from_numpy(free), torch.from_numpy(nreq)
+    rank = _rank_select(f, q)
+    assert torch.equal(rank, t_ref(f, q))
+    assert torch.equal(rank, radix_select_kth(f, q))
+    ref = np.stack([np.asarray(j_radix(jnp.asarray(free[i]),
+                                       jnp.asarray(nreq[i])))
+                    for i in range(free.shape[0])])
+    np.testing.assert_array_equal(rank.numpy().view(np.uint32),
+                                  ref.view(np.uint32))
+    assert np.all(rank.numpy()[0] == BIG)
+
+
+@pytest.mark.parametrize("shape,seed", [((20, 4, 136), 0),
+                                        ((20, 17, 4, 136), 1),
+                                        ((5, 3, 20), 4), ((3, 256), 5),
+                                        ((6, 129), 6)])
+def test_rank_scheme_matches_reference_on_random_rows(shape, seed):
+    """The campaign step's and the EASY window's shapes, a narrow row, the
+    widest row the rank kernel takes (256) and a non-multiple-of-4 row."""
+    free, nreq = _case(shape, seed, sentinel_row=True, negative=True)
+    f, q = torch.from_numpy(free), torch.from_numpy(nreq)
+    rank = _rank_select(f, q)
+    assert torch.equal(rank, radix_select_kth(f, q))
+    flat_f, flat_q = free.reshape(-1, shape[-1]), nreq.reshape(-1)
+    ref = np.asarray(kth_free_ref(jnp.asarray(flat_f), jnp.asarray(flat_q)))
+    np.testing.assert_array_equal(rank.numpy().reshape(-1).view(np.uint32),
+                                  ref.view(np.uint32))
+
+
+def test_rank_scheme_keeps_the_sign_of_zero():
+    """-0.0 sorts below +0.0 on the uint32 keys, in both schemes."""
+    f = torch.tensor([[0.0, -0.0, 0.0, 1.0], [-0.0, -0.0, 0.0, 0.0]])
+    for k in range(1, 5):
+        q = torch.tensor([k, k], dtype=torch.int32)
+        a, b = _rank_select(f, q), radix_select_kth(f, q)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 @pytest.mark.parametrize("fn", [radix_select_kth, t_ref])
 def test_kth_free_clips_out_of_range_requests(fn):
     free = torch.arange(12, dtype=torch.float32).reshape(2, 6)
@@ -147,3 +220,24 @@ def test_cuda_kernel_matches_twin_on_card(shape):
     torch.cuda.synchronize()
     assert torch.equal(out, kth_free_time(f, n, force="torch"))
     assert torch.equal(out, kth_free_time(f, n, force="sort"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [20, 136, 256, 257, 1000])
+def test_cuda_kernel_edge_rows_on_card(n):
+    """The edge rows on the card, on both sides of the rank kernel's 256
+    limit: kernel == radix select == sort, bit for bit, and a
+    non-contiguous view equals its contiguous copy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    free, nreq = _edge_case(n)
+    f = torch.from_numpy(free).cuda()
+    q = torch.from_numpy(nreq).cuda()
+    out = kth_free_cuda(f, q)
+    torch.cuda.synchronize()
+    bits = out.view(torch.int32)
+    assert torch.equal(bits, radix_select_kth(f, q).view(torch.int32))
+    assert torch.equal(out, t_ref(f, q))
+    view = f.transpose(0, 1)
+    assert torch.equal(kth_free_cuda(view, q.transpose(0, 1)),
+                       out.transpose(0, 1))

@@ -25,7 +25,8 @@ from repro.kernels.is_hist import key_histogram_pallas  # noqa: E402
 from repro.kernels.is_hist import key_histogram_ref as j_is_ref  # noqa: E402
 from repro.kernels.stencil3d import stencil7_pallas  # noqa: E402
 from repro.kernels.stencil3d import stencil7_ref as j_st_ref  # noqa: E402
-from repro_torch.kernels.ep import ep_pairs, ep_pairs_cuda  # noqa: E402
+from repro_torch.kernels.ep import (ep_pairs, ep_pairs_cuda,  # noqa: E402
+                                    ep_pairs_ref, ep_pass, ep_pass_cuda)
 from repro_torch.kernels.is_hist import (SMEM_BUCKETS,  # noqa: E402
                                          key_histogram, key_histogram_cuda)
 from repro_torch.kernels.stencil3d import stencil7, stencil7_cuda  # noqa: E402
@@ -102,6 +103,55 @@ def test_ep_overflowing_deviates_land_in_the_last_annulus():
     h, s = ep_pairs(u)
     assert h.tolist() == [1.0] + [0.0] * 8 + [2.0]
     assert s[0] == float("inf") and torch.isnan(s[1])
+
+
+def _carry(counts_past_2_24):
+    """A non-zero f32 carry; with ``counts_past_2_24`` its counts lie
+    above 2^24, where adding a batch's odd count rounds."""
+    base = 2.0 ** 24 + 2 if counts_past_2_24 else 7.0
+    hist = torch.arange(10, dtype=torch.float32) * 1e5 + base
+    return hist, torch.tensor([1234.5, -98765.25])
+
+
+@pytest.mark.parametrize("nb,n,carry", [(4, 4096, "past_2_24"),
+                                        (3, 1001, "small"), (5, 64, None),
+                                        (1, 8192, "past_2_24")])
+def test_ep_pass_equals_per_batch_loop(nb, n, carry):
+    """The draw pass adds each batch into the f32 carry in batch order,
+    bit-equal to the reference's scan body (``hist + h``, ``sx + s[0]``,
+    ``sy + s[1]``) over per-batch ``ep_pairs_ref`` calls, with the
+    rounding of counts past 2^24; its counts also equal the reference's
+    kernel per batch carried in numpy f32."""
+    u = np.stack([_pairs(n, 100 * nb + i) for i in range(nb)])
+    if carry is None:
+        hist, sums = torch.zeros(10), torch.zeros(2)
+    else:
+        hist, sums = _carry(carry == "past_2_24")
+    sx, sy = sums[0].clone(), sums[1].clone()
+    got = ep_pass(torch.from_numpy(u), hist.clone(), sums.clone())
+    ref_hist = hist.numpy().copy()
+    for ub in u:
+        h, s = ep_pairs_ref(torch.from_numpy(ub))
+        hist, sx, sy = hist + h, sx + s[0], sy + s[1]
+        hp, _ = ep_pairs_pallas(jnp.asarray(ub), block_n=ub.shape[1],
+                                interpret=True)
+        ref_hist = ref_hist + np.asarray(hp)
+    assert ref_hist.dtype == np.float32
+    assert torch.equal(got[0], hist)
+    assert torch.equal(got[1], torch.stack([sx, sy]))
+    np.testing.assert_array_equal(got[0].numpy(), ref_hist)
+    if carry == "past_2_24":                        # the adds did round
+        exact = _carry(True)[0].double() + sum(
+            ep_pairs_ref(torch.from_numpy(ub))[0].double() for ub in u)
+        assert not torch.equal(got[0].double(), exact)
+
+
+def test_ep_pass_updates_the_carries_in_place():
+    u = torch.from_numpy(np.stack([_pairs(512, 1), _pairs(512, 2)]))
+    hist, sums = _carry(False)
+    h, s = ep_pass(u, hist, sums)
+    assert h is hist and s is sums
+    assert not torch.equal(hist, _carry(False)[0])
 
 
 # ----------------------------------------------------------------------- IS
@@ -188,10 +238,12 @@ def test_stencil_boundary_is_dirichlet_zero():
 
 @pytest.mark.parametrize("call", [
     lambda f: ep_pairs(torch.zeros(2, 8), force=f),
+    lambda f: ep_pass(torch.zeros(3, 2, 8), torch.zeros(10), torch.zeros(2),
+                      force=f),
     lambda f: key_histogram(torch.zeros(8, dtype=torch.int32), n_buckets=4,
                             force=f),
     lambda f: stencil7(torch.zeros(4, 4, 4), force=f),
-], ids=["ep", "is_hist", "stencil7"])
+], ids=["ep", "ep_pass", "is_hist", "stencil7"])
 def test_dispatch_modes(call):
     """``torch`` runs the plain version; the reference's Pallas modes are
     refused; ``cuda`` on a CPU tensor raises instead of falling back."""
@@ -204,16 +256,18 @@ def test_dispatch_modes(call):
 
 
 def test_cuda_wrappers_refuse_cpu_tensors_without_counting():
-    before = (ep_pairs_cuda.launches, key_histogram_cuda.launches,
+    before = (ep_pass_cuda.launches, key_histogram_cuda.launches,
               stencil7_cuda.launches)
     with pytest.raises(ValueError):
         ep_pairs_cuda(torch.zeros(2, 8))
+    with pytest.raises(ValueError):
+        ep_pass_cuda(torch.zeros(3, 2, 8), torch.zeros(10), torch.zeros(2))
     with pytest.raises(ValueError):
         key_histogram_cuda(torch.zeros(8, dtype=torch.int32), n_buckets=4,
                            bucket_shift=0)
     with pytest.raises(ValueError):
         stencil7_cuda(torch.zeros(4, 4, 4))
-    assert (ep_pairs_cuda.launches, key_histogram_cuda.launches,
+    assert (ep_pass_cuda.launches, key_histogram_cuda.launches,
             stencil7_cuda.launches) == before
 
 
@@ -236,6 +290,29 @@ def test_ep_kernel_matches_plain_on_card(n):
     h2, s2 = ep_pairs(u, force="torch")
     assert torch.equal(h, h2)
     torch.testing.assert_close(s, s2, rtol=1e-6, atol=0, equal_nan=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb,n", [(16, 2 ** 16), (5, 1001), (1, 2 ** 16),
+                                  (16, 65539), (40, 4096)])
+def test_ep_pass_kernel_matches_plain_on_card(nb, n):
+    """The draw pass into a carry past 2^24: counts equal the plain pass,
+    sums within rtol 1e-6; and so do its batches' per-batch kernel calls
+    added into the carry in order."""
+    dev = _card()
+    u = torch.from_numpy(np.stack([_pairs(n, i) for i in range(nb)])).to(dev)
+    hist0, sums0 = (t.to(dev) for t in _carry(True))
+    h, s = ep_pass(u, hist0.clone(), sums0.clone())
+    torch.cuda.synchronize()
+    h2, s2 = ep_pass(u, hist0.clone(), sums0.clone(), force="torch")
+    assert torch.equal(h, h2)
+    torch.testing.assert_close(s, s2, rtol=1e-6, atol=0)
+    hl, sl = hist0, sums0
+    for ub in u:
+        hb, sb = ep_pairs(ub)
+        hl, sl = hl + hb, sl + sb
+    assert torch.equal(h, hl)
+    torch.testing.assert_close(s, sl, rtol=1e-6, atol=0)
 
 
 @pytest.mark.gpu

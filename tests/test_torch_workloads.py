@@ -31,7 +31,7 @@ from repro.workloads.ep import run_ep as j_run_ep  # noqa: E402
 from repro.workloads.ep import verify_ep as j_verify_ep  # noqa: E402
 from repro.workloads.is_sort import run_is as j_run_is  # noqa: E402
 from repro.workloads.is_sort import verify_is as j_verify_is  # noqa: E402
-from repro_torch.kernels.ep import ep_pairs_cuda  # noqa: E402
+from repro_torch.kernels.ep import ep_pass_cuda  # noqa: E402
 from repro_torch.kernels.is_hist import key_histogram_cuda  # noqa: E402
 from repro_torch.kernels.stencil3d import stencil7_cuda  # noqa: E402
 from repro_torch.utils.fp import fma  # noqa: E402
@@ -111,6 +111,34 @@ def test_run_ep_matches_reference(m, batch_pow, seed):
     assert verify_ep(res) == j_verify_ep(ref)
 
 
+@pytest.mark.parametrize("draw_pairs,passes", [
+    (2 ** 16, 1),                 # the whole run in one pass
+    (2 ** 14, 4),                 # several passes of 4 batches
+    (5 * 2 ** 12, 4),             # 5 + 5 + 5 + 1: a ragged last pass
+])
+def test_run_ep_draw_passes_match_reference(monkeypatch, draw_pairs, passes):
+    """``run_ep`` adds one draw pass per ``ep_pass`` call into its carry;
+    the grouping of batches into passes changes nothing: equal to the
+    reference's per-batch scan (hist exact, sums rtol 1e-5) and bit-equal
+    to the one-pass run."""
+    import repro_torch.workloads.ep as port_ep
+    one_pass = run_ep(m=16, batch_pow=12, seed=2, device="cpu")
+    calls = []
+    real = port_ep.ep_pass
+
+    def counted(u, *a, **k):
+        calls.append(u.shape[0])
+        return real(u, *a, **k)
+
+    monkeypatch.setattr(port_ep, "_DRAW_PAIRS", draw_pairs)
+    monkeypatch.setattr(port_ep, "ep_pass", counted)
+    res = run_ep(m=16, batch_pow=12, seed=2, device="cpu")
+    assert len(calls) == passes and sum(calls) == 16
+    _check_ep(res, j_run_ep(m=16, batch_pow=12, seed=2))
+    for k in ("hist", "sx", "sy", "accepted"):
+        assert torch.equal(res[k], one_pass[k]), k
+
+
 @pytest.mark.parametrize("n_pow,bucket_pow,iterations,seed", [
     (12, 10, 3, 0), (14, 6, 2, 5), (10, 10, 1, 2)])
 def test_run_is_matches_reference(n_pow, bucket_pow, iterations, seed):
@@ -164,11 +192,11 @@ def test_scales_keep_the_reference_sizes():
 
 
 def test_cpu_runs_launch_no_kernel():
-    before = (ep_pairs_cuda.launches, key_histogram_cuda.launches,
+    before = (ep_pass_cuda.launches, key_histogram_cuda.launches,
               stencil7_cuda.launches)
     for name in ("EP", "IS", "LU"):
         run_benchmark(name, "smoke", device="cpu")
-    assert (ep_pairs_cuda.launches, key_histogram_cuda.launches,
+    assert (ep_pass_cuda.launches, key_histogram_cuda.launches,
             stencil7_cuda.launches) == before
 
 
