@@ -11,10 +11,18 @@ Phases, each printing one JSON line:
                (``torch.equal``; EP's sums within rtol 1e-6) at the shapes
                the paths give it and at edge cases; kth_free also against
                the sort oracle; EP's draw pass [16, 2, 2^16] into a
-               non-zero carry and against its per-batch calls.  Kernel
-               (events, back to back) / host (enqueue, no sync) / device /
-               plain / library times, the bound and the launch floor (a
-               1-element ``add_``), one line per kernel
+               non-zero carry and against its per-batch calls; is_hist
+               also on keys[1:] (not 16-byte aligned), 3, 1,001 and
+               2^24 + 3 keys and SMEM_BUCKETS + 1 buckets; stencil7 also
+               on grids whose edges cut its tiles (5x7x33, 64x1x64,
+               3x64x5, 1x1x1).
+               Kernel (events, back to back) / host (enqueue, no sync) /
+               device / plain / library times, the bound and the launch
+               floor (a 1-element ``add_``), one line per kernel; for
+               is_hist and stencil7 also the wrapper's host time by step
+               and is_hist's device time by kernel (memset, count); then
+               a ``kernel_host`` line: the host µs of the launch floor and
+               the kth_free, is_hist and stencil7 wrappers, in turns
   kernel_flash the flash attention kernel against its blocked plain version
                and the plain-softmax oracle (atol 3e-5 in f32, 3e-2 in
                bf16, and bf16 also within 2 bf16 ulps of |ref| + 1e-4) at
@@ -24,7 +32,7 @@ Phases, each printing one JSON line:
                32/64/128/256, f32 and bf16) and strided views (fused QKV,
                head-major, f32 and bf16); the route each case took (bf16
                at head dims 64 and 128: the tensor-core kernel, else the
-               f32-core one); kernel / device / plain /
+               f32-core one); kernel / host / device / plain /
                ``F.scaled_dot_product_attention`` times, the bound and the
                tensor-core route's issued-operation floor, and one b = 1,
                s = 32,768 call with its last rows checked
@@ -36,9 +44,9 @@ Phases, each printing one JSON line:
                1e-4 max |plain|, and bit-equal to its run on contiguous
                copies) and one b = 1, l = 32,768 call; the route (bf16:
                four tensor-core launches, f32: three f32-core ones);
-               kernel / device / per-launch device / plain times, the bound
-               and the tensor-core route's issued-operation floor (no
-               single PyTorch call computes an SSD scan)
+               kernel / host / device / per-launch device / plain times,
+               the bound and the tensor-core route's issued-operation
+               floor (no single PyTorch call computes an SSD scan)
   paper        the paper's NPB K sweep; the paper-claim assertions hold
   campaign     the documented campaign: 10,000 Poisson NPB jobs at rate
                0.5, K in {0, .05, .1, .2, .3} x 4 seeds, stragglers and
@@ -433,13 +441,43 @@ def phase_kernel_ep() -> dict:
     return res
 
 
+def _host_steps(fn, module, alloc) -> dict:
+    """Host µs per call of a kernel wrapper ``fn`` and of its steps, each
+    over 2,000 calls with no synchronisation: ``whole``; ``no_launch``,
+    the wrapper with ``module._build.launch`` stubbed to return 0 (its
+    checks, allocation and Python calls, without the C entry);
+    ``launch_plumbing``, ``_build.launch`` with a C-free callback (the
+    device check and the raw stream); ``alloc``, the wrapper's output
+    allocation alone.  ``c_entry_and_launch``, what is left of ``whole``,
+    is the ctypes call and the CUDA API calls of the C entry."""
+    import torch
+    build = module._build
+    launch = build.launch
+    dev = torch.cuda.current_device()
+    steps = dict(whole=host_us(fn, 2000))
+    build.launch = lambda device, call: 0
+    try:
+        steps["no_launch"] = host_us(fn, 2000)
+    finally:
+        build.launch = launch
+    steps["launch_plumbing"] = host_us(lambda: launch(dev, lambda s: 0), 2000)
+    steps["alloc"] = host_us(alloc, 2000)
+    steps["c_entry_and_launch"] = (steps["whole"] - steps["no_launch"]
+                                   - steps["launch_plumbing"])
+    return steps
+
+
 def phase_kernel_is() -> dict:
     """The CUDA histogram kernel against its plain version: IS class A
-    (2^23 keys, 1,024 buckets, shift 16), out-of-range keys, and a bucket
-    count above shared memory (the kernel's global-atomic path)."""
+    (2^23 keys, 1,024 buckets, shift 16), out-of-range keys, a bucket
+    count above shared memory (the kernel's global-atomic path) and one
+    just above it, ragged inputs (keys[1:], not 16-byte aligned;
+    keys[:1001]; 3 keys; 1,000 keys) and 2^24 + 3 keys (uint32 counts and
+    a conversion launch)."""
     import torch
     from repro_torch.kernels.is_hist import (SMEM_BUCKETS, key_histogram_cuda,
                                              key_histogram_ref)
+    from repro_torch.kernels.is_hist import kernel as is_kernel
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     n, nb, shift = 2 ** 23, 1024, 16
@@ -456,7 +494,16 @@ def phase_kernel_is() -> dict:
              "global_atomics": (torch.randint(-5, big_nb + 5, (2 ** 22,),
                                               generator=gen, device=dev,
                                               dtype=torch.int32), big_nb, 0),
-             "few_keys": (keys[:1000], 16, 26)}
+             "smem_buckets_plus_1": (wild[: 2 ** 20], SMEM_BUCKETS + 1, 12),
+             "few_keys": (keys[:1000], 16, 26),
+             "unaligned": (wild[1:], nb, shift),
+             "keys_1001": (wild[:1001], nb, shift),
+             "keys_3": (keys[:3], nb, shift),
+             "keys_3_unaligned": (keys[5:8], nb, shift),
+             "keys_2_24_plus_3": (torch.randint(
+                 0, nb << shift, (2 ** 24 + 3,), generator=gen, device=dev,
+                 dtype=torch.int32), nb, shift)}
+    check(wild[1:].data_ptr() % 16 != 0, "keys[1:] is not 16-byte aligned")
     for name, (k, b, sh) in cases.items():
         out = key_histogram_cuda(k, n_buckets=b, bucket_shift=sh)
         torch.cuda.synchronize()
@@ -468,9 +515,17 @@ def phase_kernel_is() -> dict:
           "is_hist drops every out-of-range key")
     fn = lambda: key_histogram_cuda(keys, n_buckets=nb, bucket_shift=shift)  # noqa: E731
     res = dict(n=n, n_buckets=nb, shift=shift,
-               kernel_us=cuda_ms(fn, 200) * 1e3,
-               kernel_device_us=_device_us_per_call(
-                   fn, ("key_hist", "counts_to_f32", "Memset")),
+               kernel_us=cuda_ms(fn, 2000) * 1e3,
+               host_us_by_step=_host_steps(
+                   fn, is_kernel, lambda: keys.new_empty(
+                       nb, dtype=torch.float32)))
+    # the memset, the count and (from 2^24 keys on) the uint32 -> f32
+    # conversion
+    by_kernel = _device_us_by_kernel(
+        fn, ("key_hist", "counts_to_f32", "Memset"))
+    res.update(kernel_device_us=(sum(by_kernel.values()) if by_kernel
+                                 else None),
+               device_us_by_kernel=by_kernel,
                plain_us=cuda_ms(lambda: key_histogram_ref(
                    keys, n_buckets=nb, bucket_shift=shift), 50) * 1e3,
                library_us=cuda_ms(lambda: torch.bincount(
@@ -480,6 +535,7 @@ def phase_kernel_is() -> dict:
                    cases["global_atomics"][0], n_buckets=big_nb,
                    bucket_shift=0), 50) * 1e3,
                max_abs_err=0.0, cases=sorted(cases), **launch_floor())
+    res["host_us"] = res["host_us_by_step"]["whole"]
     # per key: shift, 2 compares, 1 atomic add; 4 bytes read; n_buckets
     # f32 written
     res.update(_bound(4 * n + 4 * nb, 4 * n))
@@ -489,16 +545,19 @@ def phase_kernel_is() -> dict:
 
 def phase_kernel_stencil() -> dict:
     """The CUDA stencil against its plain version at the CFD grids (24^3
-    smoke, 64^3 class A), a non-cubic 48x8x8, 256^3 for bandwidth, other
-    coefficients, and the Dirichlet check of the reference's tests."""
+    smoke, 64^3 class A), non-cubic grids whose y and z edges cut through
+    the kernel's tiles (48x8x8, 5x7x33, 64x1x64, 3x64x5, 1x1x1), 256^3 for
+    bandwidth, other coefficients, and the Dirichlet check of the
+    reference's tests."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.stencil3d import kernel as st_kernel
     from repro_torch.kernels.stencil3d import stencil7_cuda, stencil7_ref
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     grids = {s: torch.randn(s, generator=gen, device=dev)
-             for s in ((24, 24, 24), (64, 64, 64), (48, 8, 8),
-                       (256, 256, 256))}
+             for s in ((24, 24, 24), (64, 64, 64), (48, 8, 8), (5, 7, 33),
+                       (1, 1, 1), (64, 1, 64), (3, 64, 5), (256, 256, 256))}
     for shape, u in grids.items():
         for cc, cn in ((-6.0, 1.0), (0.3, -0.7)):
             out = stencil7_cuda(u, coef_c=cc, coef_n=cn)
@@ -525,8 +584,11 @@ def phase_kernel_stencil() -> dict:
         torch.backends.cudnn.allow_tf32 = allow_tf32
     big = grids[(256, 256, 256)]
     pts = u.numel()
+    steps = _host_steps(lambda: stencil7_cuda(u), st_kernel,
+                        lambda: torch.empty_like(u))
     res = dict(shape=list(u.shape),
                kernel_us=cuda_ms(lambda: stencil7_cuda(u), 2000) * 1e3,
+               host_us=steps["whole"], host_us_by_step=steps,
                kernel_device_us=_device_us_per_call(
                    lambda: stencil7_cuda(u), ("stencil7",)),
                plain_us=cuda_ms(lambda: stencil7_ref(u), 200) * 1e3,
@@ -543,6 +605,52 @@ def phase_kernel_stencil() -> dict:
     # the neighbour loads); 4 bytes read and 4 written
     res.update(_bound(8 * pts, 8 * pts))
     emit("kernel", name="stencil7", **res)
+    return res
+
+
+def phase_kernel_host(rounds: int = 15, iters: int = 100) -> dict:
+    """Host enqueue µs per call of the launch floor and of the wrappers of
+    the small kernels at their path shapes, in turns: each round times
+    every one of them (``iters`` calls with no synchronisation, then a
+    synchronise), in an order rotated from round to round, so that the
+    medians compare them free of the drift between phases.  ``iters`` is
+    small enough that is_hist, whose device time exceeds its host time,
+    never fills the launch queue."""
+    import statistics
+    import torch
+    from repro_torch.kernels.is_hist import key_histogram_cuda
+    from repro_torch.kernels.kth_free import kth_free_cuda
+    from repro_torch.kernels.stencil3d import stencil7_cuda
+    dev = torch.device("cuda")
+    free, nreq = _kth_case((20, 4, 136), 0, dev)
+    keys = torch.randint(0, 1 << 26, (2 ** 23,), device=dev,
+                         dtype=torch.int32)
+    u = torch.randn((64, 64, 64), device=dev)
+    x = torch.ones(1, device=dev)
+    fns = {"launch_floor": lambda: x.add_(1),
+           "kth_free": lambda: kth_free_cuda(free, nreq),
+           "is_hist": lambda: key_histogram_cuda(keys, n_buckets=1024,
+                                                 bucket_shift=16),
+           "stencil7": lambda: stencil7_cuda(u)}
+    names = list(fns)
+    times: dict = {k: [] for k in names}
+    for r in range(rounds):
+        for k in names[r % len(names):] + names[:r % len(names)]:
+            times[k].append(host_us(fns[k], iters))
+    res = dict(median_host_us={k: statistics.median(v)
+                               for k, v in times.items()},
+               range_host_us={k: [min(v), max(v)] for k, v in times.items()},
+               rounds=rounds, iters=iters)
+    emit("kernel_host", **res)
+    return res
+
+
+def phase_kernels() -> dict:
+    """The ``kernel`` phase: one line per small kernel, then their host
+    costs in turns."""
+    res = {"kth_free": phase_kernel(), "ep": phase_kernel_ep(),
+           "is_hist": phase_kernel_is(), "stencil7": phase_kernel_stencil()}
+    phase_kernel_host()
     return res
 
 
@@ -711,6 +819,7 @@ def phase_kernel_flash() -> dict:
                issued_floor_ms=_flash_issued(FLASH_PATH, True)
                / BF16_TENSOR_OPS_PER_S * 1e3,
                kernel_us=cuda_ms(fn, 20) * 1e3,
+               host_us=host_us(fn, 30),
                kernel_device_us=_device_us_per_call(fn, ("flash_fwd",), 10),
                plain_us=cuda_ms(lambda: flash_attention(
                    q, k, v, causal=True, block_q=512, block_k=512,
@@ -913,7 +1022,7 @@ def phase_kernel_ssd() -> dict:
         launches = _device_us_by_kernel(fn, ("ssd_",), 10)
         res[name] = dict(
             route=route, launches_per_call=LAUNCHES_PER_CALL[route],
-            kernel_us=cuda_ms(fn, 20) * 1e3,
+            kernel_us=cuda_ms(fn, 20) * 1e3, host_us=host_us(fn, 30),
             kernel_device_us=sum(launches.values()) if launches else None,
             launch_device_us=launches,
             plain_us=cuda_ms(plain, 3, warmup=1) * 1e3,
@@ -1571,10 +1680,7 @@ def _phases(counters: dict) -> dict:
     """The phases after ``build``, by name, in the order they run; the
     main-path phases add their kernels' launch counts to ``counters``."""
     return {
-        "kernel": lambda: {"kth_free": phase_kernel(),
-                           "ep": phase_kernel_ep(),
-                           "is_hist": phase_kernel_is(),
-                           "stencil7": phase_kernel_stencil()},
+        "kernel": phase_kernels,
         "kernel_flash": phase_kernel_flash,
         "kernel_ssd": phase_kernel_ssd,
         "paper": phase_paper,

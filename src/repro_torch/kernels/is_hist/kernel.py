@@ -18,10 +18,16 @@ from repro_torch.kernels import _build
 SMEM_BUCKETS = 48 * 1024 // 4
 
 
+_launch = None
+
+
 def _lib():
-    return _build.function("is_hist", "key_histogram_launch", [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+    global _launch
+    if _launch is None:
+        _launch = _build.function("is_hist", "key_histogram_launch", [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p])
+    return _launch
 
 
 def key_histogram_cuda(keys, *, n_buckets: int, bucket_shift: int):
@@ -40,13 +46,12 @@ def key_histogram_cuda(keys, *, n_buckets: int, bucket_shift: int):
     if not 0 <= bucket_shift <= 31:
         raise ValueError(f"bucket_shift must be in [0, 31], got "
                          f"{bucket_shift}")
-    keys = keys.contiguous()
-    counts = torch.empty(n_buckets, dtype=torch.int32, device=keys.device)
-    out = torch.empty(n_buckets, dtype=torch.float32, device=keys.device)
-    launch = _lib()
-    err = _build.launch(keys.get_device(), lambda stream: launch(
-        keys.data_ptr(), keys.shape[0], n_buckets, bucket_shift,
-        counts.data_ptr(), out.data_ptr(), stream))
+    k = keys if keys.is_contiguous() else keys.contiguous()
+    out = k.new_empty(n_buckets, dtype=torch.float32)
+    fn = _launch or _lib()
+    err = _build.launch(k.get_device(), lambda stream: fn(
+        k.data_ptr(), k.shape[0], n_buckets, bucket_shift, out.data_ptr(),
+        stream))
     if err != 0:
         raise RuntimeError(f"is_hist kernel launch failed: CUDA error {err}")
     key_histogram_cuda.launches += 1

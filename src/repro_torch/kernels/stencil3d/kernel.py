@@ -14,10 +14,16 @@ import torch
 from repro_torch.kernels import _build
 
 
+_launch = None
+
+
 def _lib():
-    return _build.function("stencil7", "stencil7_launch", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+    global _launch
+    if _launch is None:
+        _launch = _build.function("stencil7", "stencil7_launch", [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+    return _launch
 
 
 def stencil7_cuda(u, *, coef_c: float = -6.0, coef_n: float = 1.0):
@@ -34,11 +40,12 @@ def stencil7_cuda(u, *, coef_c: float = -6.0, coef_n: float = 1.0):
     if u.dim() != 3 or min(u.shape) < 1:
         raise ValueError(f"u must be a non-empty [nx, ny, nz] grid, got "
                          f"{tuple(u.shape)}")
-    u = u.contiguous()
+    if not u.is_contiguous():
+        u = u.contiguous()
     out = torch.empty_like(u)
     nx, ny, nz = u.shape
-    launch = _lib()
-    err = _build.launch(u.get_device(), lambda stream: launch(
+    fn = _launch or _lib()
+    err = _build.launch(u.get_device(), lambda stream: fn(
         u.data_ptr(), out.data_ptr(), nx, ny, nz, coef_c, coef_n, stream))
     if err != 0:
         raise RuntimeError(f"stencil7 kernel launch failed: CUDA error {err}")

@@ -316,12 +316,18 @@ def test_ep_pass_kernel_matches_plain_on_card(nb, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,buckets,shift", [
-    (2 ** 23, 1024, 16), (2 ** 20, SMEM_BUCKETS * 2, 4), (1000, 16, 10)])
-def test_is_kernel_matches_plain_on_card(n, buckets, shift):
+@pytest.mark.parametrize("n,buckets,shift,start", [
+    (2 ** 23, 1024, 16, 0), (2 ** 20, SMEM_BUCKETS * 2, 4, 0),
+    (1000, 16, 10, 0), (2 ** 23, 1024, 16, 1), (1001, 1024, 16, 0),
+    (3, 16, 10, 0), (4096 + 5, SMEM_BUCKETS + 1, 2, 3), (3, 1024, 4, 2),
+    (2 ** 24 + 3, 1024, 16, 1)])
+def test_is_kernel_matches_plain_on_card(n, buckets, shift, start):
+    """The class A shape, the global-atomic path, ragged n with the first
+    key ``start`` words past the tensor's (aligned) start (the kernel's
+    scalar head and tail), and 2^24 + 3 keys (uint32 counts)."""
     dev = _card()
-    keys = torch.from_numpy(_keys(n, buckets, shift, 2,
-                                  out_of_range=True)).to(dev)
+    keys = torch.from_numpy(_keys(n + start, buckets, shift, 2,
+                                  out_of_range=n >= 16)).to(dev)[start:]
     h = key_histogram(keys, n_buckets=buckets, bucket_shift=shift)
     torch.cuda.synchronize()
     assert torch.equal(h, key_histogram(keys, n_buckets=buckets,
@@ -329,11 +335,15 @@ def test_is_kernel_matches_plain_on_card(n, buckets, shift):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(24, 24, 24), (64, 64, 64), (48, 8, 8)])
-def test_stencil_kernel_matches_plain_on_card(shape):
+@pytest.mark.parametrize("coefs", [(-6.0, 1.0), (0.3, -0.7)])
+@pytest.mark.parametrize("shape", [(24, 24, 24), (64, 64, 64), (48, 8, 8),
+                                   (5, 7, 33), (1, 1, 1), (64, 1, 64),
+                                   (3, 64, 5)])
+def test_stencil_kernel_matches_plain_on_card(shape, coefs):
     dev = _card()
+    cc, cn = coefs
     u = torch.from_numpy(np.random.default_rng(3).standard_normal(
         shape).astype(np.float32)).to(dev)
-    o = stencil7(u)
+    o = stencil7(u, coef_c=cc, coef_n=cn)
     torch.cuda.synchronize()
-    assert torch.equal(o, stencil7(u, force="torch"))
+    assert torch.equal(o, stencil7(u, coef_c=cc, coef_n=cn, force="torch"))
