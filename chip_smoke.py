@@ -13,7 +13,9 @@ Phases, each printing one JSON line:
                the sort oracle; EP's draw pass [16, 2, 2^16] into a
                non-zero carry and against its per-batch calls; is_hist
                also on keys[1:] (not 16-byte aligned), 3, 1,001 and
-               2^24 + 3 keys and SMEM_BUCKETS + 1 buckets; stencil7 also
+               2^24 + 3 keys and SMEM_BUCKETS + 1 buckets; kth_free at
+               the EASY step's two shapes too, the window [20, 17, 4, 136]
+               and the head recheck [20, 17, 136]; stencil7 also
                on grids whose edges cut its tiles (5x7x33, 64x1x64,
                3x64x5, 1x1x1).
                Kernel (events, back to back) / host (enqueue, no sync) /
@@ -54,8 +56,26 @@ Phases, each printing one JSON line:
                launch count rises by exactly J per run, the twin placer
                gives bit-equal results, and the step loop makes no host
                synchronisation
+  easy_campaign  EASY backfilling, window 16, on the reference ablation's
+               contended SWF stream (``synthetic_swf_arrays(10_000)``
+               through ``swf_lines``/``load_swf``/``workload_from_trace``,
+               the four JSCC systems), the campaign's grid (20 lanes),
+               faults and warm start: the full 10,016-step run launches
+               the kernel exactly 2 (J + W) times, every lane backfills,
+               EASY's mean total wait over the lanes is below FCFS's on
+               the same stream (every lane printed); on the first 2,000
+               jobs the ``sort`` placer is bit-equal and ``totals_only``
+               keeps the same totals; the step makes no host sync; ms per
+               step, jobs/s, launches and device µs per step, idle share
   cross_device the first 1,000 jobs on the CPU (twin) against the card
-               (kernel) within the parity bands of PERF.md
+               (kernel) within the parity bands of PERF.md; and the first
+               500 jobs of the EASY stream, full and totals_only
+  schedule_cli ``repro_torch.launch.schedule.main`` on the card: the paper
+               suite, ``--jobs 200 --scenario diurnal --queue
+               easy_backfill:window=16`` and the SWF fixture as an EASY
+               campaign (K 0, .1, .3 x 2 seeds) print the facade's totals
+               on the same inputs; ``--power-cap 60000`` is refused
+               (``NotImplementedError``, ROADMAP item 5)
   workloads    the NPB analogues (EP, IS, BT, SP, LU) through
                ``run_benchmark`` at ``small`` and at NPB class A sizes
                (``A``; BT/SP/LU, whose ``small`` is their ``A``, run
@@ -283,6 +303,7 @@ def phase_kernel() -> dict:
     cases = {}
     cases["slice"] = _kth_case((20, 4, 136), 0, dev)         # campaign step
     cases["easy"] = _kth_case((20, 17, 4, 136), 1, dev)      # EASY window
+    cases["recheck"] = _kth_case((20, 17, 136), 5, dev)      # EASY guard
     free, nreq = _kth_case((20, 4, 136), 2, dev)
     free[0] = BIG                                            # all-BIG rows
     free[1] = torch.randint(0, 3, free[1].shape, device=dev).float()  # ties
@@ -326,13 +347,18 @@ def phase_kernel() -> dict:
         t.update(_bound(free.numel() * 4 + rows * 8, 32 * free.numel() * 2))
         return t
 
-    # the campaign step's shape; the EASY window's (the batched entry)
+    # the campaign step's shape; the EASY step's two: its window scored
+    # against one table (the batched entry) and the head recheck (one
+    # request per trial row)
     free, nreq = cases["slice"]
     res = dict(shape=list(free.shape), **timings(free, nreq),
                library="torch.sort + gather (two calls)",
                easy_shape=list(cases["easy"][0].shape),
                easy={k: v for k, v in timings(*cases["easy"]).items()
                      if k not in ("bytes", "ops")},
+               recheck_shape=list(cases["recheck"][0].shape),
+               recheck={k: v for k, v in timings(*cases["recheck"]).items()
+                        if k not in ("bytes", "ops")},
                max_abs_err=max_err, cases=sorted(cases),
                launches_so_far=kth_free_cuda.launches, **launch_floor())
     emit("kernel", name="kth_free", **res)
@@ -1088,7 +1114,7 @@ def phase_paper() -> None:
          placements=sel.tolist())
 
 
-def _campaign(w, placer=None, device=None, totals_only=False):
+def _campaign(w, placer=None, device=None, totals_only=False, queue=None):
     import numpy as np
     from repro_torch.core import FaultConfig, Scheduler
     from repro_torch.core.policy import make_policy
@@ -1096,7 +1122,7 @@ def _campaign(w, placer=None, device=None, totals_only=False):
     sched = Scheduler(pol, seeds=CAMPAIGN_SEEDS, warm_start=True,
                       faults=FaultConfig(straggler_prob=0.05,
                                          failure_prob=0.01),
-                      placer=placer, device=device)
+                      placer=placer, device=device, queue=queue)
     return sched.run(w, totals_only=totals_only)
 
 
@@ -1132,23 +1158,37 @@ def _sync_count(fn):
     return sum("synchroniz" in str(c.message) for c in caught)
 
 
-def _launches_per_step(w_small):
-    """CUDA kernels launched per step, from a profiler trace of a short
-    run (None when the profiler records no device kernels)."""
+def _launches_per_step(w_small, steps=None, **kw):
+    """CUDA kernels launched, device µs, and device µs of the ten busiest
+    kernel names, per step, from a profiler trace of a short run of
+    ``steps`` steps (default: one per job); None when the profiler
+    records no device kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    _campaign(w_small)
+    steps = steps or len(w_small.prog)
+    _campaign(w_small, **kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _campaign(w_small)
+        _campaign(w_small, **kw)
         torch.cuda.synchronize()
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        return None, None
+        return None, None, None
     busy_us = sum(e.device_time_total for e in kernels)
-    return len(kernels) / len(w_small.prog), busy_us / len(w_small.prog)
+    names: dict = {}
+    for e in kernels:
+        names[e.name] = names.get(e.name, 0.0) + e.device_time_total / steps
+    top = dict(sorted(names.items(), key=lambda kv: -kv[1])[:10])
+    return len(kernels) / steps, busy_us / steps, top
+
+
+def _count(counters: dict, kernel: str, path: str, n: int) -> None:
+    """Add one main path's launches of ``kernel`` to ``counters``, and keep
+    them by path."""
+    counters[kernel] = counters.get(kernel, 0) + n
+    counters.setdefault("by_path", {}).setdefault(kernel, {})[path] = n
 
 
 def phase_campaign(counters: dict) -> dict:
@@ -1164,9 +1204,9 @@ def phase_campaign(counters: dict) -> dict:
     # the main path: every count to 0 just before, read just after
     kth_free_cuda.launches = 0
     full, t_full, _ = _timed_campaign(w)
-    counters["kth_free"] = kth_free_cuda.launches
-    check(counters["kth_free"] == J,
-          f"kth_free launches {counters['kth_free']} != J={J}")
+    n_main = kth_free_cuda.launches
+    _count(counters, "kth_free", "campaign", n_main)
+    check(n_main == J, f"kth_free launches {n_main} != J={J}")
 
     tot, t_tot, n_tot = _timed_campaign(w, totals_only=True)
     check(n_tot == J, f"totals_only launches {n_tot} != J={J}")
@@ -1198,7 +1238,7 @@ def phase_campaign(counters: dict) -> dict:
              for n in (200, 400)}
     check(syncs[200] == syncs[400],
           f"host syncs grow with J (no sync allowed in the step): {syncs}")
-    per_step, busy_us = _launches_per_step(_prefix(w, 200))
+    per_step, busy_us, by_kernel = _launches_per_step(_prefix(w, 200))
     step_us = t_full / J * 1e6
     res = dict(jobs=J, lanes=B, seconds_full=t_full,
                seconds_totals_only=t_tot, seconds_twin_placer=t_twin,
@@ -1207,9 +1247,10 @@ def phase_campaign(counters: dict) -> dict:
                ms_per_step_twin_placer=t_twin / J * 1e3,
                jobs_per_s=J * B / t_full,
                jobs_per_s_totals_only=J * B / t_tot,
-               kth_free_launches_per_step=counters["kth_free"] / J,
+               kth_free_launches_per_step=n_main / J,
                cuda_launches_per_step=per_step,
                device_busy_us_per_step=busy_us,
+               device_us_per_step_by_kernel=by_kernel,
                device_idle_share=(None if busy_us is None
                                   else 1.0 - busy_us / step_us),
                host_syncs_per_run=syncs, sync_probe_item=probe,
@@ -1251,6 +1292,244 @@ def phase_cross_device() -> None:
         emit("cross_device", jobs=1000, totals_only=totals_only,
              exact="all but " + ",".join(banded) if banded else "all",
              worst_rel_reduction=worst)
+    # EASY: the first 500 jobs of the easy_campaign stream
+    w = _prefix(_easy_stream(), 500)
+    for totals_only in (False, True):
+        kw = dict(totals_only=totals_only, queue=EASY_QUEUE)
+        cpu = _campaign(w, device="cpu", **kw)
+        gpu = _campaign(w, **kw)
+        banded = () if totals_only else ("total_energy", "total_wait",
+                                         "slowdown_sum")
+        worst = _same_easy(cpu, gpu, banded, "cpu/cuda")
+        emit("cross_device", queue=EASY_QUEUE, jobs=500,
+             totals_only=totals_only,
+             exact="all but " + ",".join(banded) if banded else "all",
+             worst_rel_reduction=worst,
+             n_backfilled=gpu.n_backfilled.flatten().tolist())
+
+
+#: the EASY campaign: the reference ablation's contended SWF stream
+#: (``benchmarks/scheduler_ablation.py``) at the campaign's length
+EASY_WINDOW = 16
+EASY_QUEUE = f"easy_backfill:window={EASY_WINDOW}"
+EASY_PREFIX = 2_000
+EASY_FIELDS = ("system", "tier", "nodes", "backfilled", "start", "finish",
+               "wait", "energy", "runtime", "C_tab", "T_tab", "runs",
+               "busy", "makespan", "max_wait", "idle_energy",
+               "n_backfilled", "total_energy", "total_wait",
+               "slowdown_sum")
+
+
+def _easy_stream():
+    """10,000 jobs of ``synthetic_swf_arrays`` through the SWF text format
+    onto the four JSCC systems (maxN 136)."""
+    from repro_torch.core import JSCC_SYSTEMS
+    from repro_torch.data import (load_swf, swf_lines, synthetic_swf_arrays,
+                                  workload_from_trace)
+    return workload_from_trace(
+        load_swf(swf_lines(*synthetic_swf_arrays(CAMPAIGN_J))), JSCC_SYSTEMS)
+
+
+def _same_easy(a, b, banded, what) -> float:
+    """Every field of two EASY results equal, but the ``banded`` ones
+    within rtol 1e-6; returns the worst relative difference of those."""
+    import numpy as np
+    worst = 0.0
+    for f in EASY_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        if x is None:
+            check(y is None, f"{what}: {f} on one side only")
+            continue
+        x, y = x.cpu().numpy(), y.cpu().numpy()
+        if f in banded:
+            rel = np.abs(x.astype(np.float64) - y) / np.abs(x)
+            worst = max(worst, float(rel.max()))
+            check(bool((rel <= 1e-6).all()), f"{what} {f} rel {rel.max()}")
+        else:
+            check(np.array_equal(x, y), f"{what}: {f} differs")
+    return worst
+
+
+def phase_easy_campaign(counters: dict) -> dict:
+    """EASY backfilling (window 16) on the contended SWF stream, the
+    campaign's grid (K x seeds = 20 lanes), stragglers and failures, warm
+    start: the main path of the EASY core."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.kth_free import kth_free_cuda
+    w = _easy_stream()
+    J, W, B = CAMPAIGN_J, EASY_WINDOW, len(CAMPAIGN_KS) * len(CAMPAIGN_SEEDS)
+    steps = J + W
+
+    # the main path: every count to 0 just before, read just after
+    kth_free_cuda.launches = 0
+    easy, t_easy, _ = _timed_campaign(w, queue=EASY_QUEUE)
+    n_main = kth_free_cuda.launches
+    _count(counters, "kth_free", "easy_campaign", n_main)
+    check(n_main == 2 * steps,
+          f"EASY kth_free launches {n_main} != 2 (J + W) = {2 * steps}")
+    arrival = torch.as_tensor(w.arrival, device=easy.start.device)
+    check(bool(torch.isfinite(easy.finish).all()), "finite finish times")
+    check(bool((easy.start >= arrival).all()), "no job starts before it "
+          "arrives")
+    check(bool((easy.finish > easy.start).all()), "every job runs")
+    check(bool((easy.n_backfilled > 0).all()),
+          f"a lane never backfilled: {easy.n_backfilled.tolist()}")
+    check(torch.equal(easy.n_backfilled,
+                      easy.backfilled.sum(-1).to(torch.int32)),
+          "n_backfilled != the backfilled flags")
+
+    # FCFS on the same stream, same grid
+    fcfs, t_fcfs, _ = _timed_campaign(w)
+    w_easy = easy.total_wait.double().flatten().cpu()
+    w_fcfs = fcfs.total_wait.double().flatten().cpu()
+    worse = [i for i in range(B) if w_easy[i] > w_fcfs[i]]
+    check(float(w_easy.mean()) < float(w_fcfs.mean()),
+          f"EASY's mean total wait {float(w_easy.mean())} is not below "
+          f"FCFS's {float(w_fcfs.mean())}")
+
+    # the twins on a prefix: the sort placer launches nothing and equals
+    # the kernel bit for bit; totals_only's running totals equal the full
+    # path's (Kahan sums within rtol 1e-5, busy and idle energy, summed in
+    # placement order there, within rtol 1e-6)
+    wp = _prefix(w, EASY_PREFIX)
+    base, t_base, n_base = _timed_campaign(wp, queue=EASY_QUEUE)
+    check(n_base == 2 * (EASY_PREFIX + W), f"prefix launches {n_base}")
+    srt, t_sort, n_sort = _timed_campaign(wp, queue=EASY_QUEUE,
+                                          placer="sort")
+    check(n_sort == 0, "placer='sort' must not launch the kernel")
+    _same_easy(base, srt, (), "kernel/sort")
+    tot, t_tot, n_tot = _timed_campaign(wp, queue=EASY_QUEUE,
+                                        totals_only=True)
+    check(n_tot == 2 * (EASY_PREFIX + W), f"totals_only launches {n_tot}")
+    for f in ("makespan", "max_wait", "C_tab", "T_tab", "runs",
+              "n_backfilled"):
+        check(torch.equal(getattr(base, f), getattr(tot, f)),
+              f"totals_only differs from full on {f}")
+    busy_exact = torch.equal(base.busy, tot.busy)
+    for f, rtol in (("total_energy", 1e-5), ("total_wait", 1e-5),
+                    ("slowdown_sum", 1e-5), ("busy", 1e-6),
+                    ("idle_energy", 1e-6)):
+        a, b = getattr(base, f).double(), getattr(tot, f).double()
+        check(bool(((a - b).abs() <= rtol * b.abs()).all()),
+              f"totals_only {f} departs from the full path")
+
+    # no host sync in the step: the detector sees one (.item()), and a
+    # run's syncs do not grow with its length
+    probe = _sync_count(lambda: torch.ones(1, device="cuda").sum().item())
+    check(probe >= 1, "sync debug mode reports no sync for .item()")
+    syncs = {n: _sync_count(lambda: _campaign(_prefix(w, n),
+                                              queue=EASY_QUEUE))
+             for n in (200, 400)}
+    check(syncs[200] == syncs[400],
+          f"EASY host syncs grow with J (no sync allowed in the step): "
+          f"{syncs}")
+    per_step, busy_us, by_kernel = _launches_per_step(
+        _prefix(w, 200), steps=200 + W, queue=EASY_QUEUE)
+    step_us = t_easy / steps * 1e6
+    res = dict(
+        jobs=J, window=W, lanes=B, steps=steps, seconds_full=t_easy,
+        ms_per_step=t_easy / steps * 1e3, jobs_per_s=J * B / t_easy,
+        kth_free_launches=n_main, kth_free_launches_per_step=n_main / steps,
+        cuda_launches_per_step=per_step, device_busy_us_per_step=busy_us,
+        device_us_per_step_by_kernel=by_kernel,
+        device_idle_share=(None if busy_us is None
+                           else 1.0 - busy_us / step_us),
+        host_syncs_per_run=syncs, sync_probe_item=probe,
+        fcfs_seconds=t_fcfs, fcfs_ms_per_step=t_fcfs / J * 1e3,
+        prefix=EASY_PREFIX, prefix_seconds={"kernel": t_base,
+                                            "sort": t_sort,
+                                            "totals_only": t_tot},
+        totals_only_busy_bit_equal=busy_exact,
+        n_backfilled=easy.n_backfilled.flatten().tolist(),
+        backfill_rate=easy.backfill_rate.flatten().tolist(),
+        mean_backfill_rate=float(easy.backfill_rate.double().mean()),
+        total_wait_easy=w_easy.tolist(), total_wait_fcfs=w_fcfs.tolist(),
+        wait_change_per_lane=((w_easy - w_fcfs) / w_fcfs).tolist(),
+        mean_wait_change=float(((w_easy - w_fcfs) / w_fcfs).mean()),
+        lanes_where_easy_waits_longer=worse,
+        total_energy=easy.total_energy.flatten().tolist(),
+        total_energy_fcfs=fcfs.total_energy.flatten().tolist(),
+        makespan=easy.makespan.flatten().tolist(),
+        makespan_fcfs=fcfs.makespan.flatten().tolist())
+    emit("easy_campaign", **res)
+    return res
+
+
+def _cli(argv):
+    """``repro_torch.launch.schedule.main(argv)``: its result and the
+    lines it printed."""
+    import contextlib
+    import io
+    from repro_torch.launch import schedule
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = schedule.main(argv)
+    return res, out.getvalue().splitlines()
+
+
+def phase_schedule_cli() -> None:
+    """The scheduler CLI on the card: the paper suite, an EASY stream and
+    the SWF fixture as an EASY campaign print the facade's totals on the
+    same inputs; a power cap is refused (ROADMAP item 5)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (JSCC_SYSTEMS, FaultConfig, Scheduler,
+                                  make_npb_workload)
+    from repro_torch.core.policy import make_policy
+    from repro_torch.data import (NPB_LARGE, NPB_SMALL, load_swf,
+                                  make_stream_workload, workload_from_trace)
+    fault = FaultConfig()
+    trace = os.path.join(ROOT, "tests", "data", "jscc_sample.swf.gz")
+    ks = np.array([0.0, 0.1, 0.3], np.float32)
+    cases = {
+        "paper": ([], make_npb_workload(JSCC_SYSTEMS),
+                  Scheduler(make_policy("paper", k=0.1), faults=fault,
+                            warm_start=True)),
+        "easy_jobs": (
+            ["--jobs", "200", "--scenario", "diurnal", "--queue", EASY_QUEUE],
+            make_stream_workload(JSCC_SYSTEMS, 200, arrival="diurnal",
+                                 rate=0.125,
+                                 mix={NPB_SMALL: 0.5, NPB_LARGE: 0.5}),
+            Scheduler(make_policy("paper", k=0.1), faults=fault,
+                      warm_start=True, queue=EASY_QUEUE)),
+        "easy_trace_campaign": (
+            ["--trace", trace, "--queue", EASY_QUEUE, "--campaign-k",
+             "0,0.1,0.3", "--campaign-seeds", "2"],
+            workload_from_trace(load_swf(trace), JSCC_SYSTEMS),
+            Scheduler(make_policy("paper", k=ks), faults=fault,
+                      seeds=[0, 1], warm_start=True, queue=EASY_QUEUE)),
+    }
+    for name, (argv, w, sched) in cases.items():
+        res, lines = _cli(argv)
+        ref = sched.run(w)
+        check(res.total_energy.is_cuda, f"CLI {name} ran off the card")
+        for f in ("total_energy", "makespan", "total_wait", "system",
+                  "n_backfilled"):
+            check(torch.equal(getattr(res, f), getattr(ref, f)),
+                  f"CLI {name}: {f} != the facade's")
+        E = ref.total_energy.cpu().numpy()
+        M = ref.makespan.cpu().numpy()
+        Wt = ref.total_wait.cpu().numpy()
+        if ref.axes:
+            want = [f"{k:.2f},{E[i].mean():.0f},{E[i].std():.0f},"
+                    f"{M[i].mean():.1f},{Wt[i].mean():.1f}"
+                    for i, k in enumerate(ks)]
+            got = [ln.rsplit(",", 1)[0] for ln in lines[2:]]
+        else:
+            want = [f"energy={float(E) / 1e3:.1f} kJ  makespan="
+                    f"{float(M):.1f} s  total_wait={float(Wt):.1f} s"]
+            got = [lines[1].split("  mean_slowdown")[0]]
+        check(got == want, f"CLI {name} printed {got}, facade {want}")
+        emit("schedule_cli", case=name, argv=argv, lines=lines,
+             n_backfilled=ref.n_backfilled.flatten().tolist())
+    try:
+        _cli(["--jobs", "200", "--power-cap", "60000"])
+    except NotImplementedError as e:
+        check("item 5" in str(e), f"--power-cap refused without item 5: {e}")
+        emit("schedule_cli", case="power_cap", refused=str(e))
+    else:
+        check(False, "--power-cap 60000 ran: its core is not ported")
 
 
 def _wrappers() -> dict:
@@ -1685,7 +1964,9 @@ def _phases(counters: dict) -> dict:
         "kernel_ssd": phase_kernel_ssd,
         "paper": phase_paper,
         "campaign": lambda: phase_campaign(counters),
+        "easy_campaign": lambda: phase_easy_campaign(counters),
         "cross_device": phase_cross_device,
+        "schedule_cli": phase_schedule_cli,
         "workloads": lambda: phase_workloads(counters),
         "executed_campaign": phase_executed_campaign,
         "serve": lambda: phase_serve(counters, "serve"),
@@ -1756,6 +2037,7 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counters[name],
+            "launches_by_path": counters.get("by_path", {}).get(name),
             "max_abs_err": k["max_abs_err"], "ms": k["kernel_us"] / 1e3,
             "device_ms": (None if k["kernel_device_us"] is None
                           else k["kernel_device_us"] / 1e3),
@@ -1766,7 +2048,8 @@ def main(argv=None) -> int:
                            else k["library_us"] / 1e3),
             "library": k["library"], "check": how})
     emit("done", seconds=time.perf_counter() - t_start, phase_seconds=phase_s,
-         campaign_ms_per_step=results["campaign"]["ms_per_step"])
+         campaign_ms_per_step=results["campaign"]["ms_per_step"],
+         easy_ms_per_step=results["easy_campaign"]["ms_per_step"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,8 @@ from repro_torch.core.workload_model import (
 )
 from repro_torch.core.policy import (
     Policy, register_policy, make_policy, policy_names, parse_policy_spec,
-    parse_queue_spec, EXPLORATIONS, FEASIBILITIES, OBJECTIVES, QUEUES,
+    parse_queue_spec, select_batched,
+    EXPLORATIONS, FEASIBILITIES, OBJECTIVES, QUEUES,
 )
 from repro_torch.core.result import SimResult, CampaignResult
 from repro_torch.core.engine import (FaultConfig, Scheduler, Workload,

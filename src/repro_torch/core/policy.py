@@ -15,7 +15,8 @@ A ``Policy`` is a frozen dataclass.  The axis names, ``window`` and
 a leading grid axis, so one engine run covers a whole hyperparameter grid.
 
 ``select`` takes ``[B, S]`` rows, one per grid lane, and returns ``[B]``
-chosen candidates.  It is written with ``where`` and masked reductions
+chosen candidates; ``select_batched`` scores a whole EASY window,
+``[..., W, S]`` rows, by flattening it into that lane axis.  It is written with ``where`` and masked reductions
 only: no branch depends on tensor values, so it never synchronises with
 the device.
 """
@@ -89,6 +90,11 @@ class Policy:
         if any(not (0.0 < p <= 1.0) for p in tiers):
             raise ValueError(f"every freq tier must be in (0, 1], got "
                              f"{tiers}")
+
+    def with_params(self, **params) -> "Policy":
+        """New Policy with replaced hyperparameter leaves (k, ucb_scale,
+        power_cap, freq_weight)."""
+        return dataclasses.replace(self, **params)
 
     @property
     def tiered(self) -> bool:
@@ -306,3 +312,41 @@ def select(policy: Policy, *, c_row, t_row, runs_row, avail_row, k,
         explore = torch.argmin(torch.where(~known, avail_row, BIG), dim=-1)
         return torch.where((~known).any(-1), explore, exploit)
     return exploit
+
+
+def _per_candidate(x, lead):
+    """A policy leaf (scalar, or one value per leading lane) repeated over
+    the trailing candidate axis of ``lead`` and flattened; scalars stay."""
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(_host(x))
+    if t.dim() == 0:
+        return x
+    t = t.reshape(t.shape + (1,) * (len(lead) - t.dim()))
+    return t.expand(lead).reshape(-1)
+
+
+def select_batched(policy: Policy, *, c_rows, t_rows, runs_rows, avail_rows,
+                   k, c_pred_rows=None, t_pred_rows=None, draws=None):
+    """``select`` over a leading candidate axis: one call scores every
+    pending job of an EASY window against its own table rows and
+    availability vector.
+
+    Rows are ``[..., W, S]`` (``*_pred_rows`` may also be ``[W, S]`` or
+    ``[S]``), ``k`` is ``[..., W]`` (per-candidate effective K) and
+    ``draws`` ``[..., W]`` (the ``random`` objective's pick per candidate,
+    ``prng.randint(fold_in(sel_key, job_id), (), 0, S)``).  Per-lane
+    policy leaves (``ucb_scale``, ``freq_weight`` of shape ``[...]``)
+    apply to every candidate of their lane.  Returns ``[..., W]`` int64,
+    equal row for row to ``select`` on each candidate."""
+    lead = c_rows.shape[:-1]
+    S = c_rows.shape[-1]
+    flat = lambda x: None if x is None else x.expand(lead + (S,)).reshape(-1, S)  # noqa: E731
+    flat_k = torch.as_tensor(k, dtype=c_rows.dtype, device=c_rows.device)
+    pol = dataclasses.replace(
+        policy, ucb_scale=_per_candidate(policy.ucb_scale, lead),
+        freq_weight=_per_candidate(policy.freq_weight, lead))
+    sel = select(pol, c_row=flat(c_rows), t_row=flat(t_rows),
+                 runs_row=flat(runs_rows), avail_row=flat(avail_rows),
+                 k=flat_k.expand(lead).reshape(-1),
+                 c_pred_row=flat(c_pred_rows), t_pred_row=flat(t_pred_rows),
+                 draw=None if draws is None else draws.reshape(-1))
+    return sel.reshape(lead)

@@ -10,7 +10,7 @@ Derived metrics:
   mean_slowdown   mean over jobs of (wait + runtime) / runtime
   mean_wait       total_wait / n_jobs
   utilization     per-system busy node-seconds / (nodes * makespan)
-  backfill_rate   fraction of jobs placed out of arrival order (0 here)
+  backfill_rate   fraction of jobs placed out of arrival order (EASY)
   tier_counts     placements per DVFS tier
   tier_energy     job-attributed energy per DVFS tier
 

@@ -1,5 +1,7 @@
 from repro_torch.data.scenarios import (
-    ARRIVAL_KINDS, NPB_LARGE, NPB_SMALL, bursty_arrivals, diurnal_arrivals,
-    maintenance_windows, make_arrivals, make_stream_workload,
-    poisson_arrivals, sample_programs,
+    ARRIVAL_KINDS, NPB_LARGE, NPB_SMALL, SWF_PHASE_FRACTIONS, TraceJob,
+    bursty_arrivals, diurnal_arrivals, load_swf, maintenance_windows,
+    make_arrivals, make_stream_workload, poisson_arrivals, sample_programs,
+    swf_lines, synthetic_swf_arrays, workload_from_arrays,
+    workload_from_swf, workload_from_trace,
 )

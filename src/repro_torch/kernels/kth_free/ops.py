@@ -5,9 +5,12 @@ Modes (``force``):
   torch  — the plain torch radix select (any device)
   sort   — the ``torch.sort`` oracle
 
-Default: ``cuda`` for a CUDA tensor, ``torch`` for a CPU tensor.  All three
-agree bit for bit.  The reference's ``pallas``/``pallas_interpret`` modes
-have no counterpart here and raise.
+Default: ``cuda`` for a CUDA tensor; on a CPU tensor ``torch`` for
+``kth_free_time`` and ``sort`` for the shared-table entries
+(``kth_free_time_shared``, ``kth_free_time_rows``), as in the reference.
+Every mode agrees bit for bit, since the answer is an element of the input.
+The reference's ``pallas``/``pallas_interpret`` modes have no counterpart
+here and raise.
 """
 
 from __future__ import annotations
@@ -47,3 +50,46 @@ def kth_free_time(node_free, n_req, *, force: str | None = None):
 #: The reference's per-candidate batched entry: one more leading dimension
 #: is just another batch dimension here.
 kth_free_time_batched = kth_free_time
+
+
+def _sorted_kth(srt, n_req):
+    """The ``n_req``-th smallest entry per row of already sorted rows
+    ``srt`` [..., R, maxN]; ``n_req`` [..., R] (clipped to [1, maxN])."""
+    idx = (n_req.to(torch.int64) - 1).clamp(0, srt.shape[-1] - 1)
+    return srt.gather(-1, idx.unsqueeze(-1)).squeeze(-1)
+
+
+def kth_free_time_shared(node_free, n_req, *, force: str | None = None):
+    """Many requests against ONE node-free table per lane: node_free [...,
+    S, maxN] f32, n_req [..., W, S] int -> [..., W, S] f32, the
+    n_req[..., w, s]-th smallest entry of row s.
+
+    ``sort`` sorts the table once and gathers every candidate's entry;
+    ``cuda`` and ``torch`` broadcast the table to [..., W, S, maxN] (the
+    kernel reads a contiguous copy) and select per candidate row."""
+    check_mode(force)
+    mode = force or ("cuda" if node_free.is_cuda else "sort")
+    W = n_req.shape[-2]
+    if mode == "sort":
+        srt = torch.sort(node_free, dim=-1).values.unsqueeze(-3)
+        return _sorted_kth(srt.expand(srt.shape[:-3] + (W,) + srt.shape[-2:]),
+                           n_req)
+    free_b = node_free.unsqueeze(-3).expand(
+        node_free.shape[:-2] + (W,) + node_free.shape[-2:])
+    return kth_free_time(free_b, n_req, force=mode)
+
+
+def kth_free_time_rows(node_free, sels, n_req, *, force: str | None = None):
+    """One request per slot against ONE node-free table per lane:
+    node_free [..., S, maxN] f32, sels [..., W] int (each slot's system),
+    n_req [..., W] int -> [..., W] f32, the n_req-th smallest entry of row
+    ``sels``.  ``sort`` sorts the table once and gathers; ``cuda`` and
+    ``torch`` select on the gathered [..., W, maxN] rows."""
+    check_mode(force)
+    mode = force or ("cuda" if node_free.is_cuda else "sort")
+    idx = sels.to(torch.int64).unsqueeze(-1).expand(
+        sels.shape + node_free.shape[-1:])
+    if mode == "sort":
+        return _sorted_kth(torch.sort(node_free, dim=-1).values.gather(-2, idx),
+                           n_req)
+    return kth_free_time(node_free.gather(-2, idx), n_req, force=mode)

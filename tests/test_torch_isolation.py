@@ -194,9 +194,19 @@ assert not bad, bad
     assert proc.returncode == 0, proc.stderr
 
 
+@pytest.mark.parametrize("kwargs", [{"queue": "easy_backfill"},
+                                    {"policy": "easy_queue_aware"}])
+def test_easy_options_run_on_the_cpu(kwargs):
+    """EASY backfilling (ROADMAP item 4) is ported: both spellings run."""
+    w = make_npb_workload(JSCC_SYSTEMS, repeats=3)
+    res = Scheduler(device="cpu", warm_start=True, **kwargs).run(w)
+    assert res.system.shape == (15,) and res.backfilled.dtype == torch.bool
+    assert bool(torch.isfinite(res.finish).all())
+
+
 @pytest.mark.parametrize("kwargs,item", [
-    ({"queue": "easy_backfill"}, "item 4"),
-    ({"policy": "easy_queue_aware"}, "item 4"),
+    ({"easy_eval": "unrolled"}, "item 15"),
+    ({"policy": "easy_backfill", "engine": "events"}, "item 5"),
     ({"queue": "conservative:window=4"}, "item 6"),
     ({"policy": "conservative"}, "item 6"),
     ({"power_cap": 50_000.0}, "item 5"),

@@ -18,9 +18,13 @@ from repro.kernels.kth_free import (kth_free_batched_ref,  # noqa: E402
                                     kth_free_pallas, kth_free_pallas_batched,
                                     kth_free_ref)
 from repro.kernels.kth_free import radix_select_kth as j_radix  # noqa: E402
+from repro.kernels.kth_free.ops import (  # noqa: E402
+    kth_free_time_rows as j_rows, kth_free_time_shared as j_shared)
 from repro_torch.kernels.kth_free import (kth_free_cuda,  # noqa: E402
                                           kth_free_time,
                                           kth_free_time_batched,
+                                          kth_free_time_rows,
+                                          kth_free_time_shared,
                                           radix_select_kth)
 from repro_torch.kernels.kth_free import kth_free_ref as t_ref  # noqa: E402
 from repro_torch.kernels.kth_free.kernel import (  # noqa: E402
@@ -241,3 +245,101 @@ def test_cuda_kernel_edge_rows_on_card(n):
     view = f.transpose(0, 1)
     assert torch.equal(kth_free_cuda(view, q.transpose(0, 1)),
                        out.transpose(0, 1))
+
+
+def _clipped(nreq, n, rng):
+    """Requests with clipped entries mixed in: 0, negative, n + 1 and
+    far above n (the entries clip to [1, n])."""
+    q = nreq.copy()
+    flat = q.reshape(-1)
+    pick = rng.permutation(flat.size)[:4 * max(1, flat.size // 8)]
+    flat[pick] = np.resize(np.array([0, -3, n + 1, 10 ** 6], np.int32),
+                           pick.size)
+    return q
+
+
+@pytest.mark.parametrize("b,wn,s,n,seed", [
+    (1, 17, 4, 136, 0),   # the EASY window of one lane at the JSCC widths
+    (3, 9, 4, 136, 1),    # grid lanes
+    (2, 1, 3, 20, 2),     # W = 1
+    (2, 5, 7, 200, 3),
+])
+def test_kth_free_shared_matches_reference_sort(b, wn, s, n, seed):
+    """Many requests against one table per lane: every port mode equals
+    the reference's ``kth_free_time_shared(force="sort")`` lane by lane,
+    including clipped requests."""
+    rng = np.random.default_rng(seed)
+    free, _ = _case((b, s, n), seed, sentinel_row=True, negative=True)
+    nreq = _clipped(rng.integers(1, n + 1, (b, wn, s)).astype(np.int32), n,
+                    rng)
+    ref = np.stack([np.asarray(j_shared(jnp.asarray(free[i]),
+                                        jnp.asarray(nreq[i]), force="sort"))
+                    for i in range(b)])
+    f, q = torch.from_numpy(free), torch.from_numpy(nreq)
+    for mode in (None, "torch", "sort"):
+        out = kth_free_time_shared(f, q, force=mode)
+        assert out.shape == (b, wn, s)
+        np.testing.assert_array_equal(out.numpy(), ref, err_msg=str(mode))
+    # one table without lanes
+    np.testing.assert_array_equal(
+        kth_free_time_shared(f[0], q[0]).numpy(), ref[0])
+
+
+@pytest.mark.parametrize("b,wn,s,n,seed", [
+    (1, 17, 4, 136, 0),
+    (3, 9, 4, 136, 1),
+    (2, 1, 3, 20, 2),
+    (2, 33, 7, 200, 3),   # slots outnumber systems: reserved rows repeat
+])
+def test_kth_free_rows_matches_reference_sort(b, wn, s, n, seed):
+    """One request per slot on its own reserved system: every port mode
+    equals the reference's ``kth_free_time_rows(force="sort")``."""
+    rng = np.random.default_rng(seed)
+    free, _ = _case((b, s, n), seed, sentinel_row=True, negative=True)
+    sels = rng.integers(0, s, (b, wn)).astype(np.int32)
+    nreq = _clipped(rng.integers(1, n + 1, (b, wn)).astype(np.int32), n, rng)
+    ref = np.stack([np.asarray(j_rows(jnp.asarray(free[i]),
+                                      jnp.asarray(sels[i]),
+                                      jnp.asarray(nreq[i]), force="sort"))
+                    for i in range(b)])
+    f, q = torch.from_numpy(free), torch.from_numpy(nreq)
+    sl = torch.from_numpy(sels)
+    for mode in (None, "torch", "sort"):
+        out = kth_free_time_rows(f, sl, q, force=mode)
+        assert out.shape == (b, wn)
+        np.testing.assert_array_equal(out.numpy(), ref, err_msg=str(mode))
+    np.testing.assert_array_equal(
+        kth_free_time_rows(f[0], sl[0], q[0]).numpy(), ref[0])
+
+
+def test_shared_entries_refuse_cuda_on_cpu_and_bad_modes():
+    free, nreq = _case((2, 4, 136), 0)
+    f = torch.from_numpy(free)
+    q = torch.from_numpy(nreq).unsqueeze(1).expand(2, 3, 4)
+    before = kth_free_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kth_free_time_shared(f, q, force="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kth_free_time_rows(f, torch.zeros((2, 3), dtype=torch.int64),
+                           q[..., 0], force="cuda")
+    assert kth_free_cuda.launches == before
+    with pytest.raises(ValueError, match="modes"):
+        kth_free_time_shared(f, q, force="pallas")
+
+
+@pytest.mark.gpu
+def test_shared_entries_on_card():
+    """The EASY step's two shapes on the card: the kernel (the default)
+    equals the sort mode bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    rng = np.random.default_rng(5)
+    free, _ = _case((20, 4, 136), 5, sentinel_row=True, negative=True)
+    f = torch.from_numpy(free).cuda()
+    q = torch.from_numpy(_clipped(rng.integers(1, 137, (20, 17, 4)).astype(
+        np.int32), 136, rng)).cuda()
+    sl = torch.from_numpy(rng.integers(0, 4, (20, 17))).cuda()
+    assert torch.equal(kth_free_time_shared(f, q),
+                       kth_free_time_shared(f, q, force="sort"))
+    assert torch.equal(kth_free_time_rows(f, sl, q[..., 0]),
+                       kth_free_time_rows(f, sl, q[..., 0], force="sort"))

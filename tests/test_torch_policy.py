@@ -92,3 +92,53 @@ def test_lex_argmin_ties_and_all_infeasible():
     # K < 0: nothing is feasible, so every system is considered
     assert t_pol._paper_rule(c, t, torch.tensor([-0.5, -0.5])).tolist() \
         == [2, 1]
+
+
+@pytest.mark.parametrize("name", r_pol.policy_names())
+def test_select_batched_matches_reference(name):
+    """``select_batched`` over an EASY window per lane, [L, W, S] rows
+    with per-lane ``ucb_scale`` and ``freq_weight``, equals the
+    reference's ``select_batched`` run lane by lane with those leaves;
+    the ``random`` picks come from fold_in(key, job id) in both."""
+    L, W = 4, B // 4
+    ucb = np.array([0.2, 0.35, 0.5, 0.9], np.float32)
+    fw = np.array([0.0, 1.0e-6, 2.0e-6, 5.0e-6], np.float32)
+    rp = r_pol.make_policy(name)
+    tp = t_pol.make_policy(name, ucb_scale=torch.from_numpy(ucb),
+                           freq_weight=torch.from_numpy(fw))
+    n_cand = 4 * len(rp.freq_tiers)
+
+    @jax.jit
+    def ref_fn(u, f, c, t, r, a, k, cp, tp, keys):
+        return jax.vmap(lambda u, f, c, t, r, a, k, keys: r_pol.select_batched(
+            r_pol.Policy(**{**rp.__dict__, "ucb_scale": u, "freq_weight": f}),
+            c_rows=c, t_rows=t, runs_rows=r, avail_rows=a, k=k,
+            c_pred_rows=cp, t_pred_rows=tp, keys=keys))(
+            u, f, c, t, r, a, k, keys)
+
+    for seed in range(2):
+        rows = _rows(n_cand, seed)
+        jobs = np.arange(B).reshape(L, W) * 7 + 3          # job ids
+        keys = jax.vmap(lambda j: jax.random.fold_in(
+            jax.random.key(seed), j))(jnp.asarray(jobs.reshape(-1)))
+        ref = ref_fn(ucb, fw, *(rows[n].reshape(L, W, -1) for n in
+                                ("c_row", "t_row", "runs_row", "avail_row")),
+                     rows["k"].reshape(L, W),
+                     np.broadcast_to(rows["c_pred_row"], (W, n_cand)),
+                     np.broadcast_to(rows["t_pred_row"], (W, n_cand)),
+                     keys.reshape(L, W))
+        lanes = {n: torch.from_numpy(v).reshape(L, W, -1)
+                 for n, v in rows.items() if n.endswith("_row")
+                 and not n.endswith("pred_row")}
+        draws = prng.randint(prng.fold_in(prng.key(seed),
+                                          torch.from_numpy(jobs)),
+                             (), 0, n_cand)
+        out = t_pol.select_batched(
+            tp, c_rows=lanes["c_row"], t_rows=lanes["t_row"],
+            runs_rows=lanes["runs_row"], avail_rows=lanes["avail_row"],
+            k=torch.from_numpy(rows["k"]).reshape(L, W),
+            c_pred_rows=torch.from_numpy(rows["c_pred_row"]),
+            t_pred_rows=torch.from_numpy(rows["t_pred_row"]), draws=draws)
+        assert out.shape == (L, W)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref),
+                                      err_msg=f"seed {seed}")
