@@ -15,7 +15,8 @@ Phases, each printing one JSON line:
                also on keys[1:] (not 16-byte aligned), 3, 1,001 and
                2^24 + 3 keys and SMEM_BUCKETS + 1 buckets; kth_free at
                the EASY step's two shapes too, the window [20, 17, 4, 136]
-               and the head recheck [20, 17, 136]; stencil7 also
+               and the head recheck [20, 17, 136], and at the conservative
+               core's realizability rows [4, 17, 136]; stencil7 also
                on grids whose edges cut its tiles (5x7x33, 64x1x64,
                3x64x5, 1x1x1).
                Kernel (events, back to back) / host (enqueue, no sync) /
@@ -67,15 +68,40 @@ Phases, each printing one JSON line:
                jobs the ``sort`` placer is bit-equal and ``totals_only``
                keeps the same totals; the step makes no host sync; ms per
                step, jobs/s, launches and device µs per step, idle share
+  event_campaign  the event-granular cores at the SCC's full width (four
+               JSCC systems, maxN 136, window 16): the cluster draw added
+               in the reference's order by ``segment_reduce`` equals one
+               add per element; (a) FCFS on the event clock with failure
+               re-queue on the campaign's stream cut to 500 jobs, its
+               grid (20 lanes) and faults, one kth_free launch a step
+               (3,504), ``sort`` placer bit-equal and ``totals_only``
+               totals equal; (b) the same 500 jobs with stragglers only
+               (2,004 steps), bit-equal to the arrival core's FCFS; (c)
+               event EASY on them, two launches a step; (d) the
+               example's capped conservative campaign (1,000 diurnal
+               jobs, caps 45/52/60 kW and none), one rows launch a step
+               (5,004): peaks under the caps, makespan non-decreasing as
+               the cap tightens; on its first 500 jobs ``totals_only``
+               equal and the uncapped lane equal to an uncapped run;
+               each with no host sync in the
+               step (two short prefixes make as many syncs), ms per step,
+               jobs/s, launches and device µs per step by kernel, idle
+               share; (e) conservative's mean wait below EASY's on the
+               reference ablation's two streams; (f) the DVFS cap x
+               freq_weight x K lattice: binding caps hold, tier counts
   cross_device the first 1,000 jobs on the CPU (twin) against the card
-               (kernel) within the parity bands of PERF.md; and the first
-               500 jobs of the EASY stream, full and totals_only
+               (kernel) within the parity bands of PERF.md; the first
+               500 jobs of the EASY stream, full and totals_only; and the
+               first 500 jobs of event_campaign's runs (a) and (d)
   schedule_cli ``repro_torch.launch.schedule.main`` on the card: the paper
                suite, ``--jobs 200 --scenario diurnal --queue
-               easy_backfill:window=16`` and the SWF fixture as an EASY
-               campaign (K 0, .1, .3 x 2 seeds) print the facade's totals
-               on the same inputs; ``--power-cap 60000`` is refused
-               (``NotImplementedError``, ROADMAP item 5)
+               easy_backfill:window=16``, the SWF fixture as an EASY
+               campaign (K 0, .1, .3 x 2 seeds), and the reference's
+               conservative spellings ``--jobs 200 --scenario bursty
+               --queue conservative --power-cap 60000`` and ``--jobs 200
+               --scenario diurnal --queue conservative:window=16`` print
+               the facade's totals on the same inputs, the conservative
+               ones also its ``peak_power`` line
   workloads    the NPB analogues (EP, IS, BT, SP, LU) through
                ``run_benchmark`` at ``small`` and at NPB class A sizes
                (``A``; BT/SP/LU, whose ``small`` is their ``A``, run
@@ -137,8 +163,16 @@ CAMPAIGN_SEEDS = (0, 1, 2, 3)
 CAMPAIGN_J = 10_000
 
 
+#: a file that also takes every line ``emit`` prints (``--log``)
+LOG = []
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    line = json.dumps({"phase": phase, **fields})
+    print(line, flush=True)
+    for path in LOG:
+        with open(path, "a") as f:
+            f.write(line + "\n")
 
 
 def check(cond: bool, what: str) -> None:
@@ -304,6 +338,7 @@ def phase_kernel() -> dict:
     cases["slice"] = _kth_case((20, 4, 136), 0, dev)         # campaign step
     cases["easy"] = _kth_case((20, 17, 4, 136), 1, dev)      # EASY window
     cases["recheck"] = _kth_case((20, 17, 136), 5, dev)      # EASY guard
+    cases["rows"] = _kth_case((4, 17, 136), 6, dev)          # cons. rows
     free, nreq = _kth_case((20, 4, 136), 2, dev)
     free[0] = BIG                                            # all-BIG rows
     free[1] = torch.randint(0, 3, free[1].shape, device=dev).float()  # ties
@@ -359,6 +394,9 @@ def phase_kernel() -> dict:
                recheck_shape=list(cases["recheck"][0].shape),
                recheck={k: v for k, v in timings(*cases["recheck"]).items()
                         if k not in ("bytes", "ops")},
+               rows_shape=list(cases["rows"][0].shape),
+               rows={k: v for k, v in timings(*cases["rows"]).items()
+                     if k not in ("bytes", "ops")},
                max_abs_err=max_err, cases=sorted(cases),
                launches_so_far=kth_free_cuda.launches, **launch_floor())
     emit("kernel", name="kth_free", **res)
@@ -1114,15 +1152,20 @@ def phase_paper() -> None:
          placements=sel.tolist())
 
 
-def _campaign(w, placer=None, device=None, totals_only=False, queue=None):
-    import numpy as np
+#: the campaign's fault model (``FaultConfig`` fields)
+CAMPAIGN_FAULTS = dict(straggler_prob=0.05, failure_prob=0.01)
+
+
+def _campaign(w, placer=None, device=None, totals_only=False, queue=None,
+              engine=None, faults=CAMPAIGN_FAULTS, policy=None,
+              seeds=CAMPAIGN_SEEDS):
+    """``Scheduler.run`` of the campaign's grid (``paper`` over the K grid
+    x seeds, warm start) or of ``policy`` with ``seeds``."""
     from repro_torch.core import FaultConfig, Scheduler
-    from repro_torch.core.policy import make_policy
-    pol = make_policy("paper", k=np.array(CAMPAIGN_KS, np.float32))
-    sched = Scheduler(pol, seeds=CAMPAIGN_SEEDS, warm_start=True,
-                      faults=FaultConfig(straggler_prob=0.05,
-                                         failure_prob=0.01),
-                      placer=placer, device=device, queue=queue)
+    sched = Scheduler(policy or _policy_of(), seeds=seeds, warm_start=True,
+                      faults=None if faults is None else FaultConfig(**faults),
+                      placer=placer, device=device, queue=queue,
+                      engine=engine)
     return sched.run(w, totals_only=totals_only)
 
 
@@ -1159,10 +1202,10 @@ def _sync_count(fn):
 
 
 def _launches_per_step(w_small, steps=None, **kw):
-    """CUDA kernels launched, device µs, and device µs of the ten busiest
-    kernel names, per step, from a profiler trace of a short run of
-    ``steps`` steps (default: one per job); None when the profiler
-    records no device kernels."""
+    """CUDA kernels launched, device µs, and the device µs and launches of
+    the ten busiest kernel names, per step, from a profiler trace of a
+    short run of ``steps`` steps (default: one per job); None when the
+    profiler records no device kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     steps = steps or len(w_small.prog)
@@ -1179,8 +1222,10 @@ def _launches_per_step(w_small, steps=None, **kw):
     busy_us = sum(e.device_time_total for e in kernels)
     names: dict = {}
     for e in kernels:
-        names[e.name] = names.get(e.name, 0.0) + e.device_time_total / steps
-    top = dict(sorted(names.items(), key=lambda kv: -kv[1])[:10])
+        us, n = names.get(e.name, (0.0, 0))
+        names[e.name] = (us + e.device_time_total, n + 1)
+    top = {name: {"us": us / steps, "launches": n / steps} for name, (us, n)
+           in sorted(names.items(), key=lambda kv: -kv[1][0])[:10]}
     return len(kernels) / steps, busy_us / steps, top
 
 
@@ -1300,12 +1345,27 @@ def phase_cross_device() -> None:
         gpu = _campaign(w, **kw)
         banded = () if totals_only else ("total_energy", "total_wait",
                                          "slowdown_sum")
-        worst = _same_easy(cpu, gpu, banded, "cpu/cuda")
+        worst = _same(cpu, gpu, EASY_FIELDS, banded, "cpu/cuda")
         emit("cross_device", queue=EASY_QUEUE, jobs=500,
              totals_only=totals_only,
              exact="all but " + ",".join(banded) if banded else "all",
              worst_rel_reduction=worst,
              n_backfilled=gpu.n_backfilled.flatten().tolist())
+    # the event cores: the first EVENT_TWIN_J jobs of the event_campaign's
+    # runs (a) FCFS with failure re-queue and (d) capped conservative
+    banded = ("total_energy", "total_wait", "slowdown_sum")
+    for run, w, kw in (
+            ("fcfs_retries", _prefix(_event_stream(), EVENT_TWIN_J),
+             dict(engine="events", queue=EVENT_FCFS)),
+            ("cons_capped", _prefix(_cap_stream(), EVENT_TWIN_J),
+             dict(policy=_cap_policy(), faults=None, seeds=0))):
+        cpu = _campaign(w, device="cpu", **kw)
+        gpu = _campaign(w, **kw)
+        worst = _same(cpu, gpu, EVENT_FIELDS, banded, f"cpu/cuda {run}")
+        emit("cross_device", run=run, jobs=EVENT_TWIN_J,
+             exact="all but " + ",".join(banded),
+             worst_rel_reduction=worst,
+             peak_power=gpu.peak_power.flatten().tolist())
 
 
 #: the EASY campaign: the reference ablation's contended SWF stream
@@ -1330,12 +1390,12 @@ def _easy_stream():
         load_swf(swf_lines(*synthetic_swf_arrays(CAMPAIGN_J))), JSCC_SYSTEMS)
 
 
-def _same_easy(a, b, banded, what) -> float:
-    """Every field of two EASY results equal, but the ``banded`` ones
-    within rtol 1e-6; returns the worst relative difference of those."""
+def _same(a, b, fields, banded, what) -> float:
+    """Every field of two results equal, but the ``banded`` ones within
+    rtol 1e-6; returns the worst relative difference of those."""
     import numpy as np
     worst = 0.0
-    for f in EASY_FIELDS:
+    for f in fields:
         x, y = getattr(a, f), getattr(b, f)
         if x is None:
             check(y is None, f"{what}: {f} on one side only")
@@ -1346,8 +1406,27 @@ def _same_easy(a, b, banded, what) -> float:
             worst = max(worst, float(rel.max()))
             check(bool((rel <= 1e-6).all()), f"{what} {f} rel {rel.max()}")
         else:
-            check(np.array_equal(x, y), f"{what}: {f} differs")
+            check(np.array_equal(x, y, equal_nan=True),
+                  f"{what}: {f} differs")
     return worst
+
+
+def _totals_agree(full, tot, what, exact=("makespan", "max_wait", "C_tab",
+                                          "T_tab", "runs", "n_backfilled",
+                                          "peak_power", "capped_delay")):
+    """``totals_only`` keeps the full path's results: the tables, peaks
+    and counts exactly, Kahan sums within rtol 1e-5, busy and idle energy
+    within rtol 1e-6."""
+    import torch
+    for f in exact:
+        check(torch.equal(getattr(full, f), getattr(tot, f)),
+              f"{what}: totals_only differs from full on {f}")
+    for f, rtol in (("total_energy", 1e-5), ("total_wait", 1e-5),
+                    ("slowdown_sum", 1e-5), ("busy", 1e-6),
+                    ("idle_energy", 1e-6)):
+        a, b = getattr(full, f).double(), getattr(tot, f).double()
+        check(bool(((a - b).abs() <= rtol * b.abs()).all()),
+              f"{what}: totals_only {f} departs from the full path")
 
 
 def phase_easy_campaign(counters: dict) -> dict:
@@ -1398,21 +1477,13 @@ def phase_easy_campaign(counters: dict) -> dict:
     srt, t_sort, n_sort = _timed_campaign(wp, queue=EASY_QUEUE,
                                           placer="sort")
     check(n_sort == 0, "placer='sort' must not launch the kernel")
-    _same_easy(base, srt, (), "kernel/sort")
+    _same(base, srt, EASY_FIELDS, (), "kernel/sort")
     tot, t_tot, n_tot = _timed_campaign(wp, queue=EASY_QUEUE,
                                         totals_only=True)
     check(n_tot == 2 * (EASY_PREFIX + W), f"totals_only launches {n_tot}")
-    for f in ("makespan", "max_wait", "C_tab", "T_tab", "runs",
-              "n_backfilled"):
-        check(torch.equal(getattr(base, f), getattr(tot, f)),
-              f"totals_only differs from full on {f}")
+    _totals_agree(base, tot, "EASY", exact=(
+        "makespan", "max_wait", "C_tab", "T_tab", "runs", "n_backfilled"))
     busy_exact = torch.equal(base.busy, tot.busy)
-    for f, rtol in (("total_energy", 1e-5), ("total_wait", 1e-5),
-                    ("slowdown_sum", 1e-5), ("busy", 1e-6),
-                    ("idle_energy", 1e-6)):
-        a, b = getattr(base, f).double(), getattr(tot, f).double()
-        check(bool(((a - b).abs() <= rtol * b.abs()).all()),
-              f"totals_only {f} departs from the full path")
 
     # no host sync in the step: the detector sees one (.item()), and a
     # run's syncs do not grow with its length
@@ -1456,6 +1527,252 @@ def phase_easy_campaign(counters: dict) -> dict:
     return res
 
 
+#: the event-granular cores: the documented campaign's stream cut to
+#: EVENT_J jobs (from 10,000, for the script's time: run (a) takes 7J
+#: steps and each run's twins as many again); the example's capped
+#: conservative campaign (``examples/multi_cluster_campaign.py``), its
+#: ``totals_only`` and uncapped twins, and ``cross_device``, on the first
+#: EVENT_TWIN_J jobs
+EVENT_J = 500
+EVENT_TWIN_J = 500
+EVENT_FCFS = f"fcfs:window={EASY_WINDOW}"
+CONS_QUEUE = f"conservative:window={EASY_WINDOW}"
+STRAGGLERS = dict(straggler_prob=0.05)
+CAPS = (45e3, 52e3, 60e3, float("inf"))
+CAP_J = 1_000
+FCFS_FIELDS = ("system", "tier", "nodes", "start", "finish", "wait",
+               "energy", "runtime", "total_energy", "makespan", "total_wait",
+               "max_wait", "slowdown_sum", "busy", "C_tab", "T_tab", "runs",
+               "idle_energy")
+EVENT_FIELDS = EASY_FIELDS + ("peak_power", "capped_delay")
+
+
+def _event_stream():
+    """The campaign phase's Poisson NPB stream, its first EVENT_J jobs."""
+    from repro_torch.core import JSCC_SYSTEMS
+    from repro_torch.data import make_stream_workload
+    return _prefix(make_stream_workload(JSCC_SYSTEMS, CAMPAIGN_J, "poisson",
+                                        rate=0.5, seed=0), EVENT_J)
+
+
+def _cap_stream():
+    """The example's capped campaign's diurnal stream of CAP_J jobs."""
+    from repro_torch.core import JSCC_SYSTEMS
+    from repro_torch.data import make_stream_workload
+    return make_stream_workload(JSCC_SYSTEMS, CAP_J, arrival="diurnal",
+                                rate=0.8, seed=3)
+
+
+def _cap_policy(caps=CAPS):
+    """The example's capped conservative policy, at the phase's window."""
+    import numpy as np
+    from repro_torch.core.policy import apply_queue_spec, make_policy
+    return apply_queue_spec(make_policy(
+        "conservative", k=0.10, power_cap=np.array(caps, np.float32)),
+        CONS_QUEUE)
+
+
+def _event_run_stats(name, w, pol, retries, calls, counters, n_small,
+                     **kw) -> tuple:
+    """One event-core run on the card: the main path with the kth_free
+    count from 0, its launches = steps x ``calls`` per step; the host
+    syncs of two short prefixes (equal: none in the step loop); ms per
+    step, jobs/s, and launches and device µs per step by kernel from a
+    profiled ``n_small``-job prefix; idle share."""
+    import torch
+    from repro_torch.core import events
+    from repro_torch.kernels.kth_free import kth_free_cuda
+    steps = events.step_count(w, pol, retries)
+    kth_free_cuda.launches = 0
+    res, seconds, _ = _timed_campaign(w, **kw)
+    n_main = kth_free_cuda.launches
+    _count(counters, "kth_free", f"event_campaign.{name}", n_main)
+    check(n_main == steps * calls,
+          f"{name}: kth_free launches {n_main} != {calls} x {steps} steps")
+    check(bool(torch.isfinite(res.finish).all()), f"{name}: finite finish")
+    check(bool((res.finish > res.start).all()), f"{name}: every job runs")
+    syncs = {n: _sync_count(lambda: _campaign(_prefix(w, n), **kw))
+             for n in (n_small, 2 * n_small)}
+    check(syncs[n_small] == syncs[2 * n_small],
+          f"{name}: host syncs grow with J (none allowed in the step): "
+          f"{syncs}")
+    small = _prefix(w, n_small)
+    small_steps = events.step_count(small, pol, retries)
+    per_step, busy_us, by_kernel = _launches_per_step(small,
+                                                      steps=small_steps, **kw)
+    step_us = seconds / steps * 1e6
+    J, B = len(w.prog), res.makespan.numel()
+    return res, dict(
+        jobs=J, lanes=B, steps=steps, seconds=seconds,
+        ms_per_step=seconds / steps * 1e3, jobs_per_s=J * B / seconds,
+        kth_free_launches=n_main, kth_free_launches_per_step=n_main / steps,
+        cuda_launches_per_step=per_step, device_busy_us_per_step=busy_us,
+        device_us_per_step_by_kernel=by_kernel,
+        device_idle_share=(None if busy_us is None
+                           else 1.0 - busy_us / step_us),
+        host_syncs_per_run=syncs, profiled_jobs=n_small,
+        profiled_steps=small_steps)
+
+
+def _policy_of(queue=None):
+    """The policy ``_campaign`` builds for ``queue``."""
+    import numpy as np
+    from repro_torch.core.policy import apply_queue_spec, make_policy
+    pol = make_policy("paper", k=np.array(CAMPAIGN_KS, np.float32))
+    return apply_queue_spec(pol, queue) if queue else pol
+
+
+def _power_order_check() -> dict:
+    """The cluster draw on the card, added in the reference's order by
+    ``segment_reduce``, equals the same order added one element at a time
+    (float32, one add per element) on a random [20, 4, 136] table."""
+    import torch
+    from repro_torch.core import events
+    g = torch.Generator().manual_seed(7)
+    draw = (torch.rand((20, 4, 136), generator=g) * 400).cuda()
+    idx, offsets, _ = order = events.power_order(4, 136, "cuda")
+    got = events._cluster_power(draw, order)
+    flat = draw.reshape(20, -1)[:, idx]
+    total = torch.zeros(20, device="cuda")
+    for lo, hi in zip(offsets[:-1].tolist(), offsets[1:].tolist()):
+        part = torch.zeros(20, device="cuda")
+        for i in range(lo, hi):
+            part = part + flat[:, i]
+        total = total + part
+    check(torch.equal(got, total), "segment_reduce does not add the cluster "
+          "draw in order on the card")
+    return dict(lanes=20, windows=len(offsets) - 1, equal=True)
+
+
+def phase_event_campaign(counters: dict) -> dict:
+    """The event-granular cores on the card at the SCC's full width (the
+    four JSCC systems, maxN 136, window 16 for the backfilling queues):
+    FCFS with failure re-queue, FCFS with stragglers against the arrival
+    core, event-driven EASY, the example's capped conservative campaign,
+    the reference ablation's queue comparison and the DVFS lattice."""
+    import numpy as np
+    import torch
+    from repro_torch.core import JSCC_SYSTEMS, Scheduler, make_npb_workload
+    from repro_torch.core.policy import make_policy
+    from repro_torch.data import (load_swf, make_stream_workload, swf_lines,
+                                  synthetic_swf_arrays, workload_from_trace)
+    from repro_torch.kernels.kth_free import kth_free_cuda
+    w = _event_stream()
+    J = EVENT_J
+    # the sync detector's first use in a process counts one more
+    probe = _sync_count(lambda: torch.ones(1, device="cuda").sum().item())
+    check(probe >= 1, "sync debug mode reports no sync for .item()")
+    out = {}
+
+    def put(run, stats):
+        out[run] = stats
+        emit("event_campaign", run=run, **stats)
+
+    put("power_order", _power_order_check())
+
+    # (a) FCFS on the event clock, failures re-queue: one kth_free call a
+    # step (the shared slot evaluation)
+    kw = dict(engine="events", queue=EVENT_FCFS)
+    a, stats = _event_run_stats("fcfs_retries", w, _policy_of(EVENT_FCFS),
+                                True, 1, counters, 25, **kw)
+    check(stats["steps"] == 7 * J + 4, "retries step count")
+    # its twins on the same stream: the sort placer, totals_only
+    kth_free_cuda.launches = 0
+    srt = _campaign(w, placer="sort", **kw)
+    check(kth_free_cuda.launches == 0, "placer='sort' launched the kernel")
+    _same(a, srt, EVENT_FIELDS, (), "fcfs_retries kernel/sort")
+    _totals_agree(a, _campaign(w, totals_only=True, **kw), "fcfs_retries")
+    put("fcfs_retries", stats)
+
+    # (b) FCFS on the event clock with stragglers only: the reference's
+    # invariant, bit-equal to the arrival core on the same card
+    kw = dict(engine="events", faults=STRAGGLERS, queue=EVENT_FCFS)
+    b, stats = _event_run_stats("fcfs", w, _policy_of(EVENT_FCFS), False,
+                                1, counters, 40, **kw)
+    arrival = _campaign(w, faults=STRAGGLERS)
+    _same(arrival, b, FCFS_FIELDS, (), "events/arrival FCFS")
+    check(bool((b.n_backfilled == 0).all()), "event FCFS backfilled")
+    put("fcfs", stats)
+
+    # (c) event-driven EASY, window 16: the slot evaluation and the head
+    # recheck, two kth_free calls a step
+    kw = dict(engine="events", faults=STRAGGLERS, queue=EASY_QUEUE)
+    c, stats = _event_run_stats("easy", w, _policy_of(EASY_QUEUE), False,
+                                2, counters, 40, **kw)
+    put("easy", dict(stats, n_backfilled=c.n_backfilled.flatten().tolist()))
+
+    # (d) the example's capped conservative campaign: one kth_free call a
+    # step (the realizability rows [4, 17, 136])
+    wc = _cap_stream()
+    kw = dict(policy=_cap_policy(), faults=None, seeds=0)
+    d, stats = _event_run_stats("cons_capped", wc, kw["policy"], False, 1,
+                                counters, 30, **kw)
+    check(stats["steps"] == 5 * CAP_J + 4, "cons step count")
+    peak = d.peak_power.cpu().numpy()
+    mk = d.makespan.cpu().numpy()
+    for i, cap in enumerate(CAPS[:-1]):
+        check(peak[i] <= cap * (1 + 1e-5), f"peak {peak[i]} over cap {cap}")
+    check(bool((np.diff(mk) <= 0).all()),
+          f"makespan must not fall as the cap tightens: {mk.tolist()}")
+    wp = _prefix(wc, EVENT_TWIN_J)
+    capped = _campaign(wp, **kw)
+    _totals_agree(capped, _campaign(wp, totals_only=True, **kw),
+                  "cons_capped")
+    unc = _campaign(wp, policy=make_policy("conservative", k=0.10),
+                    faults=None, seeds=0, queue=CONS_QUEUE)
+    for f in EVENT_FIELDS:
+        x, y = getattr(capped, f), getattr(unc, f)
+        check(torch.equal(x[-1], y), f"inf-cap lane != uncapped run on {f}")
+    put("cons_capped", dict(
+        stats, caps=list(CAPS), peak_power=peak.tolist(),
+        makespan=mk.tolist(), capped_delay=d.capped_delay.cpu().tolist(),
+        idle_energy=d.idle_energy.cpu().tolist(),
+        n_backfilled=d.n_backfilled.cpu().tolist()))
+
+    # (e) the reference ablation's queue comparison: conservative waits
+    # less than EASY on both of its streams
+    streams = {
+        "swf": workload_from_trace(load_swf(swf_lines(
+            *synthetic_swf_arrays(250, 11))), JSCC_SYSTEMS),
+        "diurnal": make_stream_workload(JSCC_SYSTEMS, 300,
+                                        arrival="diurnal", rate=0.8, seed=3,
+                                        pred_noise=0.05)}
+    ablation = {}
+    for tag, ws in streams.items():
+        waits = {}
+        for queue in ("fcfs", "easy_backfill:window=16",
+                      "conservative:window=16"):
+            r = Scheduler(make_policy("paper", k=0.10), warm_start=True,
+                          queue=queue).run(ws)
+            waits[queue.split(":")[0]] = float(r.mean_wait)
+        check(waits["conservative"] < waits["easy_backfill"],
+              f"{tag}: conservative's mean wait is not below EASY's "
+              f"{waits}")
+        ablation[tag] = waits
+    put("ablation_mean_wait", ablation)
+
+    # (f) the DVFS Pareto lattice (``benchmarks/dvfs_pareto.py``): cap x
+    # freq_weight x K, every binding cap holds
+    wn = make_npb_workload(JSCC_SYSTEMS, repeats=4)
+    scale = float(np.median(wn.C_true) / np.median(wn.T_true))
+    caps, fws, ks = (x.ravel() for x in np.meshgrid(
+        np.array([45e3, 55e3, 1e30], np.float32),
+        scale * np.array([0.0, 0.25, 1.0, 4.0], np.float32),
+        np.array([0.10, 0.50], np.float32), indexing="ij"))
+    r = Scheduler(make_policy("dvfs_paper", k=ks, freq_weight=fws,
+                              power_cap=caps), warm_start=True).run(wn)
+    pk = r.peak_power.cpu().numpy()
+    for i, cap in enumerate(caps):
+        if cap < 1e29:
+            check(pk[i] <= cap * (1 + 1e-5), f"DVFS peak {pk[i]} > {cap}")
+    put("dvfs_lattice", dict(
+        points=len(caps), peak_power=pk.tolist(),
+        total_energy=r.total_energy.cpu().tolist(),
+        makespan=r.makespan.cpu().tolist(),
+        tier_counts=r.tier_counts.cpu().tolist()))
+    return out
+
+
 def _cli(argv):
     """``repro_torch.launch.schedule.main(argv)``: its result and the
     lines it printed."""
@@ -1469,9 +1786,10 @@ def _cli(argv):
 
 
 def phase_schedule_cli() -> None:
-    """The scheduler CLI on the card: the paper suite, an EASY stream and
-    the SWF fixture as an EASY campaign print the facade's totals on the
-    same inputs; a power cap is refused (ROADMAP item 5)."""
+    """The scheduler CLI on the card: the paper suite, an EASY stream, the
+    SWF fixture as an EASY campaign and the reference's two conservative
+    spellings (one under a 60 kW cap) print the facade's totals on the
+    same inputs, and the conservative ones its power line."""
     import numpy as np
     import torch
     from repro_torch.core import (JSCC_SYSTEMS, FaultConfig, Scheduler,
@@ -1482,6 +1800,7 @@ def phase_schedule_cli() -> None:
     fault = FaultConfig()
     trace = os.path.join(ROOT, "tests", "data", "jscc_sample.swf.gz")
     ks = np.array([0.0, 0.1, 0.3], np.float32)
+    mix = {NPB_SMALL: 0.5, NPB_LARGE: 0.5}
     cases = {
         "paper": ([], make_npb_workload(JSCC_SYSTEMS),
                   Scheduler(make_policy("paper", k=0.1), faults=fault,
@@ -1489,8 +1808,7 @@ def phase_schedule_cli() -> None:
         "easy_jobs": (
             ["--jobs", "200", "--scenario", "diurnal", "--queue", EASY_QUEUE],
             make_stream_workload(JSCC_SYSTEMS, 200, arrival="diurnal",
-                                 rate=0.125,
-                                 mix={NPB_SMALL: 0.5, NPB_LARGE: 0.5}),
+                                 rate=0.125, mix=mix),
             Scheduler(make_policy("paper", k=0.1), faults=fault,
                       warm_start=True, queue=EASY_QUEUE)),
         "easy_trace_campaign": (
@@ -1499,6 +1817,21 @@ def phase_schedule_cli() -> None:
             workload_from_trace(load_swf(trace), JSCC_SYSTEMS),
             Scheduler(make_policy("paper", k=ks), faults=fault,
                       seeds=[0, 1], warm_start=True, queue=EASY_QUEUE)),
+        "conservative_capped": (
+            ["--jobs", "200", "--scenario", "bursty", "--queue",
+             "conservative", "--power-cap", "60000"],
+            make_stream_workload(JSCC_SYSTEMS, 200, arrival="bursty",
+                                 rate=0.125, mix=mix),
+            Scheduler(make_policy("paper", k=0.1), faults=fault,
+                      warm_start=True, queue="conservative",
+                      power_cap=60000.0)),
+        "conservative_jobs": (
+            ["--jobs", "200", "--scenario", "diurnal", "--queue",
+             "conservative:window=16"],
+            make_stream_workload(JSCC_SYSTEMS, 200, arrival="diurnal",
+                                 rate=0.125, mix=mix),
+            Scheduler(make_policy("paper", k=0.1), faults=fault,
+                      warm_start=True, queue="conservative:window=16")),
     }
     for name, (argv, w, sched) in cases.items():
         res, lines = _cli(argv)
@@ -1520,16 +1853,17 @@ def phase_schedule_cli() -> None:
             want = [f"energy={float(E) / 1e3:.1f} kJ  makespan="
                     f"{float(M):.1f} s  total_wait={float(Wt):.1f} s"]
             got = [lines[1].split("  mean_slowdown")[0]]
+        if name.startswith("conservative"):
+            # the event core's power line, from the facade's fields
+            cap = "60000 W" if "--power-cap" in argv else "none"
+            want.append(f"peak_power={float(ref.peak_power) / 1e3:.1f} kW "
+                        f"(cap {cap})  capped_delay="
+                        f"{float(ref.capped_delay):.1f} s  idle_energy="
+                        f"{float(ref.idle_energy) / 1e3:.1f} kJ")
+            got.append(lines[2])
         check(got == want, f"CLI {name} printed {got}, facade {want}")
         emit("schedule_cli", case=name, argv=argv, lines=lines,
              n_backfilled=ref.n_backfilled.flatten().tolist())
-    try:
-        _cli(["--jobs", "200", "--power-cap", "60000"])
-    except NotImplementedError as e:
-        check("item 5" in str(e), f"--power-cap refused without item 5: {e}")
-        emit("schedule_cli", case="power_cap", refused=str(e))
-    else:
-        check(False, "--power-cap 60000 ran: its core is not ported")
 
 
 def _wrappers() -> dict:
@@ -1965,6 +2299,7 @@ def _phases(counters: dict) -> dict:
         "paper": phase_paper,
         "campaign": lambda: phase_campaign(counters),
         "easy_campaign": lambda: phase_easy_campaign(counters),
+        "event_campaign": lambda: phase_event_campaign(counters),
         "cross_device": phase_cross_device,
         "schedule_cli": phase_schedule_cli,
         "workloads": lambda: phase_workloads(counters),
@@ -1981,7 +2316,12 @@ def main(argv=None) -> int:
     ap.add_argument("--only", type=lambda s: s.split(","), default=None,
                     help="comma-separated phases of " + ",".join(names) +
                          " to run after build (no result lines)")
+    ap.add_argument("--log", default=None,
+                    help="also append every phase line to this file")
     args = ap.parse_args(argv)
+    if args.log:
+        os.makedirs(os.path.dirname(os.path.abspath(args.log)), exist_ok=True)
+        LOG.append(args.log)
     only = args.only
     if only is not None and set(only) - set(names):
         ap.error(f"unknown phases {sorted(set(only) - set(names))}")
@@ -2049,7 +2389,10 @@ def main(argv=None) -> int:
             "library": k["library"], "check": how})
     emit("done", seconds=time.perf_counter() - t_start, phase_seconds=phase_s,
          campaign_ms_per_step=results["campaign"]["ms_per_step"],
-         easy_ms_per_step=results["easy_campaign"]["ms_per_step"])
+         easy_ms_per_step=results["easy_campaign"]["ms_per_step"],
+         event_ms_per_step={run: v["ms_per_step"] for run, v
+                            in results["event_campaign"].items()
+                            if "ms_per_step" in v})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

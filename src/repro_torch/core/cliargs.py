@@ -23,11 +23,11 @@ reference's CLI accepts parses to the same ``Policy`` in the port:
 
 ``build_policy`` / ``build_fault`` / ``build_engine`` / ``build_scale``
 resolve parsed args into ``Scheduler`` arguments; ``policy_spec`` renders
-a scalar policy back into the canonical ``--policy`` string.  Options
-whose core is not ported yet (a power cap, ``--engine events``,
-``conservative``, ``--shards``, ``--chunk``) parse as in the reference
-and are refused by ``Scheduler`` with ``NotImplementedError`` naming
-their ROADMAP item.
+a scalar policy back into the canonical ``--policy`` string.  A power
+cap, ``--engine events`` and ``conservative`` run on the event-granular
+core; ``--shards`` and ``--chunk``, not ported yet, parse as in the
+reference and are refused by ``Scheduler`` with ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """Arrival-indexed campaign engine on torch tensors (FCFS and batched
-EASY backfilling), and the ``Scheduler`` facade.
+EASY backfilling), and the ``Scheduler`` facade, which also routes onto
+the event-granular cores of ``core/events.py``.
 
 Models the paper's SCC: several computing systems, each a pool of
 interchangeable nodes with per-node free times, and a global job queue
@@ -22,12 +23,13 @@ all ``[B, J]`` before the loop (threefry is counter based, so the bits
 equal the reference's per-step draws).  Per-job outputs go to
 preallocated ``[B, J]`` tensors.  ``queue="easy_backfill"`` runs the
 windowed EASY core (``_easy_run``): J + W steps, at most one placement
-each, with the same per-job placement arithmetic.
+each, with the same per-job placement arithmetic.  Conservative queues,
+finite power caps and ``engine="events"`` run on the event-granular cores
+(``core/events.py``), as in the reference.
 
-Requests outside this slice raise ``NotImplementedError`` naming the
-ROADMAP item that brings them: conservative queues, finite power caps,
-the event-granular engine, ``easy_eval="unrolled"``, ``shards=`` and
-``chunk=``.
+Requests outside the port raise ``NotImplementedError`` naming the
+ROADMAP item that brings them: ``easy_eval="unrolled"`` (item 15),
+``shards=`` and ``chunk=`` (item 7).
 """
 
 from __future__ import annotations
@@ -120,16 +122,21 @@ def make_npb_workload(systems, order=("BT", "EP", "IS", "LU", "SP"),
     )
 
 
-def _fault_factors(fault_key, J: int, fvecs):
-    """Deterministic straggler x failure factor of every job in every lane,
-    [B, J] f32.  fault_key: [B, 2]; fvecs: [B, 4] = (straggler_prob,
-    straggler_factor, failure_prob, restart_overhead)."""
+def _fault_draws(fault_key, J: int, fvecs):
+    """Deterministic straggler factor [B, J] f32 and failure flag [B, J]
+    bool of every job in every lane.  fault_key: [B, 2]; fvecs: [B, 4] =
+    (straggler_prob, straggler_factor, failure_prob, restart_overhead)."""
     jj = torch.arange(J, device=fault_key.device)
     u = prng.uniform(prng.fold_in(fault_key[:, None, :], jj), (2,))
     fv = fvecs[:, None, :]
     slow = torch.where(u[..., 0] < fv[..., 0], fv[..., 1], 1.0)
-    fail = torch.where(u[..., 1] < fv[..., 2], 1.0 + fv[..., 3], 1.0)
-    return slow * fail
+    return slow, u[..., 1] < fv[..., 2]
+
+
+def _fault_factors(slow, fail, fvecs):
+    """The contiguous fault model's factor per job, [B, J]: a failing job
+    re-does ``restart_overhead`` of its work in one placement."""
+    return slow * torch.where(fail, 1.0 + fvecs[:, 3:], 1.0)
 
 
 def _workload_arrays(w: Workload, device) -> dict:
@@ -220,34 +227,40 @@ def _dot(a, b):
     return acc
 
 
-def _power_totals(arrs, makespan, busy):
-    """The SCC power fields of every result.  The arrival-indexed scan
-    tracks no cluster power trace: ``peak_power`` is NaN and
-    ``capped_delay`` zero."""
-    return {"peak_power": torch.full_like(makespan, math.nan),
-            "capped_delay": torch.zeros_like(makespan),
+def _power_totals(arrs, makespan, busy, peak=None, cdel=None):
+    """The SCC power fields of every result.  The arrival-indexed scans
+    track no cluster power trace: ``peak_power`` NaN and ``capped_delay``
+    zero; the event cores pass their running peak and delay."""
+    return {"peak_power": (torch.full_like(makespan, math.nan)
+                           if peak is None else peak),
+            "capped_delay": (torch.zeros_like(makespan)
+                             if cdel is None else cdel),
             "idle_energy": _idle_energy(arrs, makespan, busy)}
 
 
 def _tier_rows(tt, p, C_row, T_row, runs_row, avail_row, C_pred_row,
-               T_pred_row):
+               T_pred_row, avail_per_tier: bool = False):
     """Expand one job's [B, S] selection rows (or an EASY window's [B, W,
     S], with ``p`` [B, W]) over the (tier x system) candidate axis,
-    tier-major (flat index f * S + s, tier 0 first)."""
+    tier-major (flat index f * S + s, tier 0 first).  ``avail_per_tier``:
+    ``avail_row`` is already per (tier, system), [..., F, S] (the
+    conservative core's per-tier earliest fit), and is only flattened."""
     rc, rt = tt["rc"][p], tt["rt"][p]                            # [..., F, S]
     F, S = rc.shape[-2:]
     flat = lambda x: x.reshape(x.shape[:-2] + (F * S,))
     tile = lambda x: flat(x.unsqueeze(-2).expand(x.shape[:-1] + (F, S)))
     return (flat(C_row.unsqueeze(-2) * rc), flat(T_row.unsqueeze(-2) * rt),
-            tile(runs_row), tile(avail_row),
+            tile(runs_row),
+            flat(avail_row) if avail_per_tier else tile(avail_row),
             flat(C_pred_row.unsqueeze(-2) * rc),
             flat(T_pred_row.unsqueeze(-2) * rt))
 
 
 def _setup(arrs: dict, w: Workload, policy: Policy, lanes: dict,
            warm_start: bool) -> dict:
-    """What both cores build before their step loop: the per-program
-    tables gathered at a chosen candidate, the [B, J] fault factors,
+    """What every core builds before its step loop: the per-program
+    tables gathered at a chosen candidate, the [B, J] fault factors (and
+    their straggler and failure parts, which the event cores use apart),
     ``random`` draws and effective K, the per-lane policy, and the
     initial node-free and learned tables."""
     dev = arrs["free0"].device
@@ -260,6 +273,7 @@ def _setup(arrs: dict, w: Workload, policy: Policy, lanes: dict,
     tt = tier_tables(arrs, policy.freq_tiers) if tiered else None
     FS = len(policy.freq_tiers) * S
     sel_key, fault_key = prng.split(prng.key(lanes["seed"])).unbind(1)
+    slow, fail = _fault_draws(fault_key, J, lanes["fvec"])
     draws = None
     if policy.objective == "random":
         jj = torch.arange(J, device=dev)
@@ -280,7 +294,8 @@ def _setup(arrs: dict, w: Workload, policy: Policy, lanes: dict,
         truth=truth,
         act=(torch.stack([tt["T"], tt["E"]], -1).reshape(P, FS, 2)
              if tiered else torch.stack([T_true, E_true], -1)),
-        factor=_fault_factors(fault_key, J, lanes["fvec"]),      # [B, J]
+        factor=_fault_factors(slow, fail, lanes["fvec"]),        # [B, J]
+        slow=slow, fail=fail,
         draws=draws,
         K=torch.where(torch.isnan(kjob), lanes["k"][:, None], kjob),
         pol=replace(policy, ucb_scale=lanes["ucb_scale"],
@@ -643,14 +658,20 @@ class Scheduler:
     seeds:      one int (no axis) or an iterable (adds a ``seed`` axis)
     warm_start: profile tables pre-filled with ground truth
     queue:      queue-discipline spec overriding the policy's: "fcfs" |
-                "easy_backfill[:window=W]"
+                "easy_backfill[:window=W]" | "conservative[:window=W]"
     easy_eval:  EASY candidate evaluation: "batched" (the only one ported)
+    power_cap:  SCC power cap in Watts, a scalar or a 1-D grid that
+                batches with ``k`` (overrides the policy's leaf); a finite
+                cap runs on the event-granular core
+    engine:     None (auto: "events" for conservative queues or finite
+                caps, else "arrival"), "arrival" or "events"; "arrival"
+                with either is a ``ValueError``.  On the event core a
+                fault grid with ``failure_prob > 0`` re-queues failures
     device:     None = CUDA (``RuntimeError`` if absent), or any torch
                 device such as "cpu"
 
-    Not in this slice (``NotImplementedError``): conservative queues, a
-    finite ``power_cap``, ``engine="events"``, ``easy_eval="unrolled"``,
-    ``shards=`` and ``chunk=``.
+    Not ported (``NotImplementedError``): ``easy_eval="unrolled"`` (item
+    15), ``shards=`` and ``chunk=`` (item 7).
 
     ``run(w)`` returns a ``SimResult`` when no axis is present, else a
     ``CampaignResult`` with ``axes`` ordered (fault, policy, seed).
@@ -680,18 +701,13 @@ class Scheduler:
             raise NotImplementedError(
                 "easy_eval='unrolled' is not ported (ROADMAP Queue 1 item "
                 "15); 'batched' gives the same placements")
-        if self.policy.queue == "conservative":
-            raise NotImplementedError(
-                "queue='conservative' is not ported yet (ROADMAP Queue 1 "
-                "item 6, conservative core)")
-        if self.policy.capped:
-            raise NotImplementedError(
-                "a finite power_cap needs the event-granular core, not "
-                "ported yet (ROADMAP Queue 1 item 5)")
-        if engine == "events":
-            raise NotImplementedError(
-                "engine='events' is not ported yet (ROADMAP Queue 1 item 5, "
-                "event core)")
+        if engine == "arrival" and self.policy.queue == "conservative":
+            raise ValueError("queue='conservative' requires the event-"
+                             "granular core (engine='events' or None)")
+        if engine == "arrival" and self.policy.capped:
+            raise ValueError("a finite power_cap requires the event-"
+                             "granular core (engine='events' or None): the "
+                             "arrival-indexed scan cannot defer placements")
         if shards is not None:
             raise NotImplementedError(
                 "shards= is not ported yet (ROADMAP Queue 1 item 7, "
@@ -701,6 +717,7 @@ class Scheduler:
                 "chunk= is not ported yet (ROADMAP Queue 1 item 7, "
                 "campaign scale)")
         check_mode(placer)
+        self.engine = engine
         self.easy_eval = easy_eval
         self.placer = placer
         self.device = resolve_device(device)
@@ -744,15 +761,28 @@ class Scheduler:
         lane = lambda x: x[None, :, None].expand(F, G, R).reshape(B)
         dev = self.device
         lanes = {"k": lane(k), "ucb_scale": lane(u),
-                 "freq_weight": lane(fw),
+                 "freq_weight": lane(fw), "power_cap": lane(pc),
                  "seed": seeds[None, None, :].expand(F, G, R).reshape(B),
                  "fvec": fmat[:, None, None, :].expand(F, G, R, 4)
                  .reshape(B, 4)}
         lanes = {n: x.to(dev) for n, x in lanes.items()}
-        run = _easy_run if pol.queue == "easy_backfill" else _arrival_run
-        out = run(_workload_arrays(w, dev), w, pol, lanes,
-                  warm_start=self.warm_start, placer=self.placer,
+        # conservative queues and finite caps need completion events;
+        # failures re-queue mid-job on the event clock
+        core = self.engine or ("events" if (pol.queue == "conservative"
+                                            or pol.capped) else "arrival")
+        kw = dict(warm_start=self.warm_start, placer=self.placer,
                   totals_only=totals_only)
+        if core == "events":
+            # imported here: the event cores import this module
+            from repro_torch.core.events import _event_run
+            fault_list = (() if self.faults is None else
+                          (self.faults,) if not has_fault_axis
+                          else self.faults)
+            run = _event_run
+            kw["retries"] = any(f.failure_prob > 0 for f in fault_list)
+        else:
+            run = _easy_run if pol.queue == "easy_backfill" else _arrival_run
+        out = run(_workload_arrays(w, dev), w, pol, lanes, **kw)
 
         axes, lead = [], []
         for name, present, size in (("fault", has_fault_axis, F),

@@ -5,6 +5,10 @@ with the reference's options and output lines
     PYTHONPATH=src python -m repro_torch.launch.schedule --device cpu
     PYTHONPATH=src python -m repro_torch.launch.schedule --device cpu \
         --jobs 200 --queue easy_backfill:window=16
+    PYTHONPATH=src python -m repro_torch.launch.schedule --device cpu \
+        --jobs 200 --scenario diurnal --queue conservative:window=16
+    PYTHONPATH=src python -m repro_torch.launch.schedule --device cpu \
+        --jobs 200 --scenario bursty --queue conservative --power-cap 60000
     PYTHONPATH=src python -m repro_torch.launch.schedule --sweep-k 0,0.1,0.2
     PYTHONPATH=src python -m repro_torch.launch.schedule \
         --trace tests/data/jscc_sample.swf.gz \
@@ -20,10 +24,12 @@ K sweep (``--sweep-k``), a campaign grid in one ``Scheduler.run``
 with ``--scenario``), SWF trace replay (``--trace``, ``.gz`` ok;
 ``--calibrate-trace`` maps classes through the phase model) and
 maintenance windows (``--outage S:START:END``, repeatable).  Queue
-disciplines: ``fcfs`` and ``easy_backfill[:window=W]``.  The options of
-cores not ported yet (``--power-cap``, ``--engine events``,
-``--queue conservative``, ``--easy-eval unrolled``, ``--shards``,
-``--chunk``) parse and are refused by ``Scheduler`` with
+disciplines: ``fcfs``, ``easy_backfill[:window=W]`` and
+``conservative[:window=W]``; an SCC power cap (``--power-cap WATTS``)
+and ``--engine events`` run on the event-granular core, which also
+prints the ``peak_power`` / ``capped_delay`` / ``idle_energy`` line.
+The options of parts not ported yet (``--easy-eval unrolled``,
+``--shards``, ``--chunk``) parse and are refused by ``Scheduler`` with
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -171,6 +177,12 @@ def main(argv=None):
           f"total_wait={float(r.total_wait):.1f} s  "
           f"mean_slowdown={float(r.mean_slowdown):.2f}  "
           f"backfill_rate={float(r.backfill_rate):.1%}")
+    peak = float(r.peak_power)
+    if not np.isnan(peak):                 # event-granular core: SCC power
+        cap_str = f"{args.power_cap:.0f} W" if args.power_cap else "none"
+        print(f"peak_power={peak/1e3:.1f} kW (cap {cap_str})  "
+              f"capped_delay={float(r.capped_delay):.1f} s  "
+              f"idle_energy={float(r.idle_energy)/1e3:.1f} kJ")
     counts = np.bincount(sel, minlength=len(w.systems))
     print("placements:", {w.systems[i]: int(c) for i, c in enumerate(counts)})
     util = _np(r.utilization)

@@ -241,14 +241,17 @@ def test_every_placer_mode_equals_the_default(stream80, placer):
 
 
 def test_easy_options():
-    """``easy_eval="unrolled"`` is not ported (item 15); EASY on the event
-    core waits for item 5; a bad ``easy_eval`` is a ValueError."""
+    """``easy_eval="unrolled"`` is not ported (item 15); EASY also runs on
+    the event core (``engine="events"``, which reports the peak draw); a
+    bad ``easy_eval`` is a ValueError."""
     with pytest.raises(NotImplementedError, match="item 15"):
         TScheduler("easy_backfill", easy_eval="unrolled", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TScheduler("easy_backfill", engine="events", device="cpu")
     with pytest.raises(ValueError, match="easy_eval"):
         TScheduler("easy_backfill", easy_eval="nope", device="cpu")
     w = workload_from_reference(r_npb(R_SYSTEMS))
     res = TScheduler("easy_backfill", engine="arrival", device="cpu").run(w)
     assert res.backfilled.shape == (5,) and res.n_backfilled.dim() == 0
+    ev = TScheduler("easy_backfill", engine="events", device="cpu").run(w)
+    assert ev.backfilled.shape == (5,) and ev.n_backfilled.dim() == 0
+    assert not bool(torch.isnan(ev.peak_power)) \
+        and bool(torch.isnan(res.peak_power))

@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``repro_torch`` (and not
 ``chip_smoke.py``) imports JAX or the reference package, the entry points
-never fall back to the CPU by themselves, and options outside the ported
-slice are refused explicitly."""
+never fall back to the CPU by themselves, the event-core options run, and
+options outside the ported slice are refused explicitly."""
 
 import ast
 import dataclasses
@@ -33,6 +33,7 @@ def _modules():
 
 
 def test_importing_every_port_module_loads_no_jax_or_reference():
+    assert "repro_torch.core.events" in set(_modules())
     code = ("import sys\n"
             f"for m in {list(_modules())!r}:\n"
             "    __import__(m)\n"
@@ -204,14 +205,27 @@ def test_easy_options_run_on_the_cpu(kwargs):
     assert bool(torch.isfinite(res.finish).all())
 
 
+@pytest.mark.parametrize("kwargs", [
+    {"policy": "easy_backfill", "engine": "events"},
+    {"queue": "conservative:window=4"},
+    {"policy": "conservative"},
+    {"power_cap": 50_000.0},
+    {"power_cap": [np.inf, 40_000.0]},
+    {"engine": "events"},
+])
+def test_event_core_options_run_on_the_cpu(kwargs):
+    """The event-granular core and conservative backfilling (ROADMAP items
+    5 and 6) are ported: each option runs, on the event clock, which
+    reports the SCC's peak draw."""
+    w = make_npb_workload(JSCC_SYSTEMS, repeats=3)
+    res = Scheduler(device="cpu", warm_start=True, **kwargs).run(w)
+    assert res.system.shape[-1] == 15
+    assert bool(torch.isfinite(res.finish).all())
+    assert bool(torch.isfinite(res.peak_power).all())
+
+
 @pytest.mark.parametrize("kwargs,item", [
     ({"easy_eval": "unrolled"}, "item 15"),
-    ({"policy": "easy_backfill", "engine": "events"}, "item 5"),
-    ({"queue": "conservative:window=4"}, "item 6"),
-    ({"policy": "conservative"}, "item 6"),
-    ({"power_cap": 50_000.0}, "item 5"),
-    ({"power_cap": [np.inf, 40_000.0]}, "item 5"),
-    ({"engine": "events"}, "item 5"),
     ({"shards": "auto"}, "item 7"),
     ({"chunk": 1024}, "item 7"),
 ])

@@ -4,9 +4,10 @@
 The option grammar resolves every spelling to the same ``Policy``, fault
 model, engine and scale-out arguments (field for field), and ``main``
 prints the reference's lines, character for character, on the paper
-suite, an EASY stream and the SWF fixture (``--device cpu``).  Options
-whose core is not ported raise ``NotImplementedError`` naming their
-ROADMAP item.
+suite, EASY streams, the SWF fixture and the conservative, power-capped
+and event-engine spellings, the ``peak_power`` line included (``--device
+cpu``).  Options whose part is not ported raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 import argparse
@@ -128,8 +129,15 @@ def _port_stdout(argv):
      "easy_backfill:window=8", "--campaign-k", "0,0.1",
      "--campaign-seeds", "2", "--totals-only", "--stragglers", "0.05",
      "--failures", "0.01"],
+    ["--jobs", "200", "--scenario", "bursty", "--queue", "conservative",
+     "--power-cap", "60000"],
+    ["--jobs", "60", "--engine", "events", "--queue", "easy_backfill",
+     "--failures", "0.1"],
+    ["--jobs", "200", "--scenario", "diurnal", "--queue",
+     "conservative:window=16"],
 ], ids=["paper", "easy_jobs", "trace_campaign", "trace_calibrated",
-        "sweep_k", "easy_totals"])
+        "sweep_k", "easy_totals", "conservative_capped", "engine_events",
+        "conservative_jobs"])
 def test_main_prints_the_reference_lines(argv):
     ref = _reference_stdout(argv)
     out, res = _port_stdout(argv)
@@ -138,9 +146,6 @@ def test_main_prints_the_reference_lines(argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--power-cap", "60000"], "item 5"),
-    (["--engine", "events"], "item 5"),
-    (["--queue", "conservative:window=16"], "item 6"),
     (["--easy-eval", "unrolled", "--queue", "easy_backfill"], "item 15"),
     (["--shards", "auto"], "item 7"),
     (["--chunk", "1024"], "item 7"),
