@@ -89,6 +89,31 @@ Phases, each printing one JSON line:
                share; (e) conservative's mean wait below EASY's on the
                reference ablation's two streams; (f) the DVFS cap x
                freq_weight x K lattice: binding caps hold, tier counts
+  campaign_scale  campaign scale: (a) each core chunked against its
+               monolithic run, bit for bit on every field: FCFS on the
+               campaign phase's own 10,000-job kernel run at chunk 4,093;
+               EASY (window 16) on the first 1,000 jobs of the EASY stream
+               at chunk 97, full and ``totals_only``; the event core's
+               FCFS with failure re-queue on the first 200 jobs of the
+               event stream at chunk 129; the capped conservative grid
+               (the 4 caps) on the first 200 jobs of the cap stream at
+               chunk 129, full and ``totals_only``; each chunked run a
+               main path of kth_free; launches per step (monolithic, one
+               chunk, short chunks) and host syncs chunked against
+               monolithic on short prefixes; (b) ``shards="auto"`` and
+               ``shards=1`` equal the unsharded run on 2,000 FCFS jobs, one
+               shard more than the card count raises ``ValueError``; (c)
+               the reference's million-job configuration (two small
+               systems, ``ucb``, warm, ``totals_only``, chunk 4,096) on 16
+               K x 4 seeds = 64 lanes at J = 10,000 and 50,000 (cut from
+               10^6 for the script's time): peak memory grows by less
+               than one [64, 40,000] f32 array, the monolithic peak at
+               10,000 beside it, ms per step, jobs/s; (d)
+               ``examples/torch_quickstart.py`` and
+               ``examples/torch_multi_cluster_campaign.py --jobs 4
+               --sim-jobs 500`` exit 0, a SUPPZ round decides as on the
+               CPU; (c) and the examples run in processes of their own
+               beside (a) and (b)
   cross_device the first 1,000 jobs on the CPU (twin) against the card
                (kernel) within the parity bands of PERF.md; the first
                500 jobs of the EASY stream, full and totals_only; and the
@@ -165,6 +190,8 @@ CAMPAIGN_J = 10_000
 
 #: a file that also takes every line ``emit`` prints (``--log``)
 LOG = []
+#: results a later phase compares with: the campaign phase's kernel run
+KEPT: dict = {}
 
 
 def emit(phase: str, **fields) -> None:
@@ -1158,14 +1185,14 @@ CAMPAIGN_FAULTS = dict(straggler_prob=0.05, failure_prob=0.01)
 
 def _campaign(w, placer=None, device=None, totals_only=False, queue=None,
               engine=None, faults=CAMPAIGN_FAULTS, policy=None,
-              seeds=CAMPAIGN_SEEDS):
+              seeds=CAMPAIGN_SEEDS, chunk=None, shards=None):
     """``Scheduler.run`` of the campaign's grid (``paper`` over the K grid
     x seeds, warm start) or of ``policy`` with ``seeds``."""
     from repro_torch.core import FaultConfig, Scheduler
     sched = Scheduler(policy or _policy_of(), seeds=seeds, warm_start=True,
                       faults=None if faults is None else FaultConfig(**faults),
                       placer=placer, device=device, queue=queue,
-                      engine=engine)
+                      engine=engine, chunk=chunk, shards=shards)
     return sched.run(w, totals_only=totals_only)
 
 
@@ -1252,6 +1279,7 @@ def phase_campaign(counters: dict) -> dict:
     n_main = kth_free_cuda.launches
     _count(counters, "kth_free", "campaign", n_main)
     check(n_main == J, f"kth_free launches {n_main} != J={J}")
+    KEPT["campaign"] = (w, full, t_full)
 
     tot, t_tot, n_tot = _timed_campaign(w, totals_only=True)
     check(n_tot == J, f"totals_only launches {n_tot} != J={J}")
@@ -1770,6 +1798,363 @@ def phase_event_campaign(counters: dict) -> dict:
         total_energy=r.total_energy.cpu().tolist(),
         makespan=r.makespan.cpu().tolist(),
         tier_counts=r.tier_counts.cpu().tolist()))
+    return out
+
+
+#: campaign scale (a): each core's chunked run against its monolithic
+#: run, at chunk sizes that divide none of the runs
+SCALE_CHUNKS = {"fcfs": 4093, "easy": 97, "events": 129, "cons_capped": 129}
+SCALE_EASY_J = 1_000
+SCALE_EVENT_J = 200
+#: (c): the reference's million-job configuration
+#: (``tests/test_sharded_campaign.py:157-181``) on a 64-lane grid, its
+#: J cut from 10^6 to 5 x 10^4 for the script's time
+SCALE_JS = (10_000, 50_000)
+SCALE_CHUNK = 4096
+SCALE_KS = 16
+SCALE_SEEDS = (0, 1, 2, 3)
+
+
+def _small_systems():
+    """The two small systems of the reference's million-job campaign."""
+    from repro_torch.core.systems import ComputeSystem
+    return (
+        ComputeSystem(name="alpha", n_nodes=8, cores_per_node=64,
+                      peak_flops_node=2e12, mem_bw_node=200e9,
+                      net_bw_node=10e9, disk_bw_node=2e9, idle_w=100.0,
+                      cpu_w=200.0, net_w=20.0, disk_w=10.0, efficiency=0.5),
+        ComputeSystem(name="beta", n_nodes=12, cores_per_node=48,
+                      peak_flops_node=1.2e12, mem_bw_node=150e9,
+                      net_bw_node=8e9, disk_bw_node=1.5e9, idle_w=80.0,
+                      cpu_w=160.0, net_w=15.0, disk_w=8.0, efficiency=0.55))
+
+
+def _fields(res) -> tuple:
+    """Every tensor field of a result (totals, tables, per-job)."""
+    return tuple(res.to_dict())
+
+
+def _kernel_count(fn) -> int:
+    """CUDA kernels, memsets and copies one call of ``fn`` runs, from a
+    trace of the device alone (lighter than ``_launches_per_step``'s)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events())
+
+
+def _chunk_launches(w, steps, chunk, big_chunk, **kw) -> dict:
+    """Device launches of a short ``totals_only`` run of ``w`` (``steps``
+    steps): monolithic, as one chunk (``chunk=steps``) and in chunks of
+    ``chunk``.  From them: the launches a chunked step adds (one chunk
+    against the monolithic run, per step), the launches each further
+    chunk adds, and the launches per step at ``big_chunk`` those two
+    predict.  (On the full path FCFS and EASY also redraw every job's
+    fault factor once at the end.)"""
+    n = {tag: _kernel_count(lambda: _campaign(w, chunk=ck, totals_only=True,
+                                              **kw))
+         for tag, ck in (("mono", None), ("one", steps),
+                         ("chunked", chunk))}
+    if not n["mono"]:
+        return dict(profiled_steps=steps, launches=None)
+    n_chunks = -(-steps // chunk)
+    per_step_extra = (n["one"] - n["mono"]) / steps
+    per_chunk_extra = (n["chunked"] - n["one"]) / (n_chunks - 1)
+    return dict(profiled_steps=steps, profiled_chunk=chunk,
+                launches_per_step_mono=n["mono"] / steps,
+                launches_per_step_one_chunk=n["one"] / steps,
+                launches_per_step_chunked=n["chunked"] / steps,
+                extra_launches_per_step=per_step_extra,
+                extra_launches_per_chunk=per_chunk_extra,
+                launches_per_step_at_chunk=(n["mono"] / steps
+                                            + per_step_extra
+                                            + per_chunk_extra / big_chunk))
+
+
+def _chunked_run(name, w, steps, calls, counters, *, mono=None,
+                 totals=False, **kw) -> dict:
+    """One core chunked against monolithic on every field (and, with
+    ``totals``, the ``totals_only`` pair); the chunked run is a main path
+    of the kth_free kernel (``calls`` launches a step)."""
+    from repro_torch.kernels.kth_free import kth_free_cuda
+    chunk = SCALE_CHUNKS[name]
+    if mono is None:
+        mono, t_mono, _ = _timed_campaign(w, **kw)
+    else:
+        mono, t_mono = mono
+    kth_free_cuda.launches = 0
+    got, t_chunk, _ = _timed_campaign(w, chunk=chunk, **kw)
+    n_main = kth_free_cuda.launches
+    _count(counters, "kth_free", f"campaign_scale.{name}", n_main)
+    check(n_main == steps * calls, f"{name}: chunked kth_free launches "
+          f"{n_main} != {calls} x {steps} steps")
+    _same(mono, got, _fields(mono), (), f"{name}: chunked/monolithic")
+    out = dict(jobs=len(w.prog), lanes=got.makespan.numel(), steps=steps,
+               chunk=chunk, seconds_mono=t_mono, seconds_chunked=t_chunk,
+               ms_per_step_mono=t_mono / steps * 1e3,
+               ms_per_step_chunked=t_chunk / steps * 1e3,
+               kth_free_launches=n_main, bit_equal_fields=len(_fields(mono)))
+    if totals:
+        tm, t_tm, _ = _timed_campaign(w, totals_only=True, **kw)
+        tc, t_tc, _ = _timed_campaign(w, totals_only=True, chunk=chunk, **kw)
+        _same(tm, tc, _fields(tm), (), f"{name}: chunked/monolithic totals")
+        out.update(seconds_totals_mono=t_tm, seconds_totals_chunked=t_tc,
+                   bit_equal_fields_totals=len(_fields(tm)))
+    return out
+
+
+def _chunk_costs(name, w, small, **kw) -> dict:
+    """Launches and host syncs of one core, chunked against monolithic,
+    on short prefixes: ``small`` = (prefix jobs, its steps, chunk).  The
+    syncs: ``totals_only`` monolithic on n jobs and chunked on n and 2n,
+    and the full path chunked on 2n."""
+    n_small, small_steps, small_chunk = small
+    t0 = time.perf_counter()
+    out = _chunk_launches(_prefix(w, n_small), small_steps, small_chunk,
+                          SCALE_CHUNKS[name], **kw)
+    sync = lambda n, ck, tot: _sync_count(  # noqa: E731
+        lambda: _campaign(_prefix(w, n), chunk=ck, totals_only=tot, **kw))
+    syncs = {"mono_totals": sync(n_small, None, True),
+             "chunked_totals": [sync(n, small_chunk, True)
+                                for n in (n_small, 2 * n_small)],
+             "chunked_full": sync(2 * n_small, small_chunk, False)}
+    check(syncs["chunked_totals"] == [syncs["mono_totals"]] * 2,
+          f"{name}: totals_only host syncs grow with the chunks: {syncs}")
+    out.update(host_syncs=syncs, prefix_jobs=[n_small, 2 * n_small],
+               seconds=time.perf_counter() - t0)
+    return out
+
+
+def _scale_run(w, chunk):
+    """Part (c): ``ucb`` over 16 K x 4 seeds, warm start, ``totals_only``:
+    wall seconds and the peak memory the run allocates above what was
+    allocated before it."""
+    import numpy as np
+    import torch
+    from repro_torch.core import Scheduler, make_policy
+    ks = np.linspace(0.0, 0.35, SCALE_KS).astype(np.float32)
+    sched = Scheduler(make_policy("ucb", k=ks), warm_start=True,
+                      seeds=list(SCALE_SEEDS), chunk=chunk)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = sched.run(w, totals_only=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return res, seconds, torch.cuda.max_memory_allocated() - base
+
+
+def _suppz_round(device, path) -> list:
+    """Five NPB programs through ``SuppzFrontend``: first submissions,
+    measured completions, resubmissions with admin and automatic K."""
+    import dataclasses
+    from repro_torch.core.suppz import Submission, SuppzFrontend
+    systems = ["KNL", "Broadwell", "Skylake", "CascadeLake"]
+    prof = {"KNL": (1.0, 150.0), "Broadwell": (2.8, 130.0),
+            "Skylake": (1.7, 76.0), "CascadeLake": (1.4, 80.0)}
+    fe = SuppzFrontend(path, systems, device=device)
+    out = []
+    for i, prog in enumerate(("BT", "EP", "IS", "LU", "SP")):
+        exe = f"npb-{prog}".encode()
+        out.append(fe.submit(Submission(exe, np_=16 * (i + 1),
+                                        t_max=300.0 + 50 * i),
+                             availability=[float((i + s) % 4)
+                                           for s in range(4)]))
+        for j, (name, (c, t)) in enumerate(prof.items()):
+            fe.report_completion(exe, name, c=c * (1 + 0.1 * i),
+                                 t=t * (1 + 0.05 * ((i + j) % 3)))
+        out.append(fe.submit(Submission(exe, np_=16, t_max=90.0 + i,
+                                        k=0.05 * i)))
+        out.append(fe.submit(Submission(exe, np_=16, t_max=140.0)))
+    return [dataclasses.asdict(d) for d in out]
+
+
+def scale_part() -> dict:
+    """Part (c) of ``campaign_scale``, run in a process of its own beside
+    the rest of the phase (its peak memory is that process's alone): the
+    reference's million-job configuration at J = 10,000 and 50,000,
+    chunked, and at 10,000 monolithic."""
+    import torch
+    from repro_torch.data import synthetic_swf_arrays, workload_from_arrays
+    scale = {}
+    for J in SCALE_JS:
+        ws = workload_from_arrays(*synthetic_swf_arrays(J, seed=11),
+                                  _small_systems())
+        res, seconds, peak = _scale_run(ws, SCALE_CHUNK)
+        check(bool(torch.isfinite(res.total_energy).all())
+              and bool((res.total_energy > 0).all()), f"J={J}: totals")
+        scale[str(J)] = dict(seconds=seconds, peak_bytes=peak,
+                             ms_per_step=seconds / J * 1e3,
+                             jobs_per_s=J * res.total_energy.numel() / seconds,
+                             lanes=res.total_energy.numel(),
+                             energy0=float(res.total_energy.flatten()[0]))
+        if J == SCALE_JS[0]:
+            mono, mono_s, mono_peak = _scale_run(ws, None)
+            check(torch.equal(mono.total_energy, res.total_energy)
+                  and torch.equal(mono.makespan, res.makespan),
+                  "scale: chunked totals != monolithic")
+            scale[f"mono_{J}"] = dict(seconds=mono_s, peak_bytes=mono_peak,
+                                      ms_per_step=mono_s / J * 1e3)
+    lo, hi = (scale[str(J)] for J in SCALE_JS)
+    growth = hi["peak_bytes"] - lo["peak_bytes"]
+    limit = lo["lanes"] * (SCALE_JS[1] - SCALE_JS[0]) * 4
+    check(lo["lanes"] == 64, f"scale grid has {lo['lanes']} lanes")
+    check(growth < limit, f"peak memory grows {growth} B from J = "
+          f"{SCALE_JS[0]} to {SCALE_JS[1]}, not under one [64, "
+          f"{SCALE_JS[1] - SCALE_JS[0]}] f32 array ({limit} B)")
+    return dict(scale, peak_growth_bytes=growth, limit_bytes=limit,
+                chunk=SCALE_CHUNK)
+
+
+def phase_campaign_scale(counters: dict) -> dict:
+    """Campaign scale on the card.  (a) each core chunked against its
+    monolithic run, bit for bit on every field: FCFS on the campaign
+    phase's own 10,000-job kernel run (chunk 4,093), EASY window 16 on
+    the first 1,000 jobs of the EASY stream (chunk 97, full and
+    ``totals_only``), the event core's FCFS with failure re-queue on the
+    first 200 jobs of the event stream (chunk 129), the capped
+    conservative grid (4 caps) on the first 200 jobs of the cap stream
+    (chunk 129, full and ``totals_only``).  (b) ``shards="auto"`` and
+    ``shards=1`` equal the unsharded run on 2,000 FCFS jobs; one shard
+    more than the devices raises ``ValueError``.  (c) the reference's
+    million-job configuration (two small systems, ``ucb``, warm,
+    ``totals_only``, chunk 4,096) on 16 K x 4 seeds = 64 lanes at J =
+    10,000 and 50,000 (cut from 10^6: a step takes over a millisecond, so
+    10^6 steps would outlast the script): peak memory grows by less than
+    one [64, 40,000] f32 array (``scale_part``).  (d)
+    ``examples/torch_quickstart.py`` and
+    ``examples/torch_multi_cluster_campaign.py --jobs 4 --sim-jobs 500``
+    exit 0 on the card; a SUPPZ round decides as on the CPU.  (c) and
+    (d) run in processes of their own, started first, beside (a), (b)
+    and, last, the launches and host syncs chunked against monolithic on
+    short prefixes (every step is host dispatch, and the card is idle
+    most of the time)."""
+    import tempfile
+    import torch
+    from repro_torch.core import events
+    out = {}
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    children = {
+        "scale": [sys.executable, "-c", "import json, chip_smoke; "
+                  "print(json.dumps(chip_smoke.scale_part()))"],
+        "torch_quickstart.py": [sys.executable,
+                                "examples/torch_quickstart.py"],
+        "torch_multi_cluster_campaign.py": [
+            sys.executable, "examples/torch_multi_cluster_campaign.py",
+            "--jobs", "4", "--sim-jobs", "500"],
+    }
+    # their output goes to files, so that a full pipe never stalls them
+    logs = tempfile.TemporaryDirectory()
+    procs = {}
+    for name, argv in children.items():
+        files = [open(os.path.join(logs.name, f"{name}.{x}"), "w+")
+                 for x in ("out", "err")]
+        procs[name] = (time.perf_counter(), files, subprocess.Popen(
+            argv, cwd=ROOT, env=env, text=True, stdout=files[0],
+            stderr=files[1]))
+    try:
+        # the sync detector's first use in a process counts one more
+        probe = _sync_count(lambda: torch.ones(1, device="cuda").sum()
+                            .item())
+        check(probe >= 1, "sync debug mode reports no sync for .item()")
+
+        # (a) chunked against monolithic
+        if "campaign" in KEPT:
+            w, full, t_full = KEPT["campaign"]
+            mono = (full, t_full)
+        else:
+            from repro_torch.core import JSCC_SYSTEMS
+            from repro_torch.data import make_stream_workload
+            w = make_stream_workload(JSCC_SYSTEMS, CAMPAIGN_J, "poisson",
+                                     rate=0.5, seed=0)
+            mono = None
+        we = _prefix(_easy_stream(), SCALE_EASY_J)
+        wv = _prefix(_event_stream(), SCALE_EVENT_J)
+        wc = _prefix(_cap_stream(), SCALE_EVENT_J)
+        pol_v, pol_c = _policy_of(EVENT_FCFS), _cap_policy()
+        runs = {  # name: (workload, steps, kth_free calls a step, kwargs,
+                  #        the profiled prefix: jobs, steps, chunk)
+            "fcfs": (w, CAMPAIGN_J, 1, {}, (60, 60, 25)),
+            "easy": (we, SCALE_EASY_J + EASY_WINDOW, 2,
+                     dict(queue=EASY_QUEUE), (60, 60 + EASY_WINDOW, 25)),
+            "events": (wv, events.step_count(wv, pol_v, True), 1,
+                       dict(engine="events", queue=EVENT_FCFS),
+                       (8, events.step_count(_prefix(wv, 8), pol_v, True),
+                        25)),
+            "cons_capped": (wc, events.step_count(wc, pol_c, False), 1,
+                            dict(policy=pol_c, faults=None, seeds=0),
+                            (8, events.step_count(_prefix(wc, 8), pol_c,
+                                                  False), 15)),
+        }
+        for name, (wn, steps, calls, kw, _) in runs.items():
+            out[name] = _chunked_run(name, wn, steps, calls, counters,
+                                     mono=mono if name == "fcfs" else None,
+                                     totals=name in ("easy", "cons_capped"),
+                                     **kw)
+
+        # (b) sharding on the one card
+        t_part = time.perf_counter()
+        wb = _prefix(w, 2_000)
+        base, t_base, _ = _timed_campaign(wb)
+        n_dev = torch.cuda.device_count()
+        t_shards = {}
+        for shards in ("auto", 1):
+            got, t_shards[str(shards)], _ = _timed_campaign(wb, shards=shards)
+            _same(base, got, _fields(base), (), f"shards={shards!r}")
+        try:
+            _campaign(wb, shards=n_dev + 1)
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        check(raised is not None, f"shards={n_dev + 1} on {n_dev} devices "
+              "did not raise")
+        out["shards"] = dict(devices=n_dev, jobs=2_000, equal=["auto", 1],
+                             too_many=n_dev + 1, error=raised,
+                             ms_per_step_unsharded=t_base / 2_000 * 1e3,
+                             ms_per_step_sharded={k: v / 2_000 * 1e3
+                                                  for k, v
+                                                  in t_shards.items()},
+                             seconds=time.perf_counter() - t_part)
+        emit("campaign_scale", run="shards", **out["shards"])
+
+        # launches and host syncs, chunked against monolithic, on prefixes
+        for name, (wn, _, _, kw, small) in runs.items():
+            out[name].update(_chunk_costs(name, wn, small, **kw))
+            emit("campaign_scale", run=f"chunked_{name}", **out[name])
+
+        # (d) a SUPPZ round; then the children's results
+        with tempfile.TemporaryDirectory() as tmp:
+            on_card = _suppz_round("cuda", os.path.join(tmp, "card.msgpack"))
+            on_cpu = _suppz_round("cpu", os.path.join(tmp, "cpu.msgpack"))
+        check(on_card == on_cpu, "SUPPZ decides otherwise on the card")
+        done = {}
+        for name, (t0, (fout, ferr), proc) in procs.items():
+            proc.wait(timeout=900)
+            fout.seek(0)
+            ferr.seek(0)
+            check(proc.returncode == 0,
+                  f"{name} exited {proc.returncode}: {ferr.read()[-2000:]}")
+            done[name] = (time.perf_counter() - t0, fout.read().splitlines())
+    finally:
+        for _, files, proc in procs.values():
+            proc.kill()
+            proc.wait()
+            for f in files:
+                f.close()
+        logs.cleanup()
+    seconds, lines = done.pop("scale")
+    out["scale"] = dict(json.loads(lines[-1]), seconds_wall=seconds)
+    emit("campaign_scale", run="scale", **out["scale"])
+    out["entry_points"] = dict(
+        examples={name: dict(seconds_wall=t, lines=lines)
+                  for name, (t, lines) in done.items()},
+        suppz_decisions=len(on_card),
+        suppz_systems=sorted({d["system"] for d in on_card}))
+    emit("campaign_scale", run="entry_points", **out["entry_points"])
     return out
 
 
@@ -2300,6 +2685,7 @@ def _phases(counters: dict) -> dict:
         "campaign": lambda: phase_campaign(counters),
         "easy_campaign": lambda: phase_easy_campaign(counters),
         "event_campaign": lambda: phase_event_campaign(counters),
+        "campaign_scale": lambda: phase_campaign_scale(counters),
         "cross_device": phase_cross_device,
         "schedule_cli": phase_schedule_cli,
         "workloads": lambda: phase_workloads(counters),
@@ -2392,7 +2778,9 @@ def main(argv=None) -> int:
          easy_ms_per_step=results["easy_campaign"]["ms_per_step"],
          event_ms_per_step={run: v["ms_per_step"] for run, v
                             in results["event_campaign"].items()
-                            if "ms_per_step" in v})
+                            if "ms_per_step" in v},
+         scale_ms_per_step={str(J): results["campaign_scale"]["scale"]
+                            [str(J)]["ms_per_step"] for J in SCALE_JS})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,17 +17,15 @@ reference's CLI accepts parses to the same ``Policy`` in the port:
     --engine {arrival,events}     scan granularity (``--core`` survives
                                   as a deprecated alias)
     --stragglers / --failures     fault-model probabilities
-    --shards auto|N               device-shard the campaign grid axis
-                                  (``add_scale_options``)
-    --chunk SIZE                  stream the scan in SIZE-step windows
+    --shards auto|N               split the campaign's lanes over the
+                                  local devices (``add_scale_options``)
+    --chunk SIZE                  run the steps in SIZE-step windows
 
 ``build_policy`` / ``build_fault`` / ``build_engine`` / ``build_scale``
 resolve parsed args into ``Scheduler`` arguments; ``policy_spec`` renders
 a scalar policy back into the canonical ``--policy`` string.  A power
 cap, ``--engine events`` and ``conservative`` run on the event-granular
-core; ``--shards`` and ``--chunk``, not ported yet, parse as in the
-reference and are refused by ``Scheduler`` with ``NotImplementedError``
-naming their ROADMAP item.
+core; ``--shards`` and ``--chunk`` reach ``Scheduler(shards=, chunk=)``.
 """
 
 from __future__ import annotations

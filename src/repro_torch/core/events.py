@@ -25,14 +25,19 @@ call over the reserved rows [B, W + 1, maxN].
 
 The step count is static (``step_count``) and the loop makes no host
 synchronisation: job data is gathered on the device by the cursor and
-the slot table, and every choice is a masked reduction.  A placement is
-deferred while ``P(now) - need * idle_w + E / T`` exceeds the cap, where
-``P(now)`` sums the node-power table (``_cluster_power``); a cap below
-the idle floor opens the stuck valve (the head is forced once no event is
-left).  With ``retries`` a failing first attempt occupies its nodes for
-``restart_overhead`` of its work and re-queues at its failure time; the
-retry re-selects a system and never fails; the tables learn once, at the
-final attempt, with the accrued factor.
+the slot table, and every choice is a masked reduction.  With ``chunk``
+the steps run in windows, each reading the per-job draws of only the
+jobs its lanes can touch (``engine._window_ids``: each lane's pending
+and re-queued jobs, its next arrivals), so ``totals_only`` memory does
+not grow with J.
+
+A placement is deferred while ``P(now) - need * idle_w + E / T`` exceeds
+the cap, where ``P(now)`` sums the node-power table (``_cluster_power``);
+a cap below the idle floor opens the stuck valve (the head is forced
+once no event is left).  With ``retries`` a failing first attempt
+occupies its nodes for ``restart_overhead`` of its work and re-queues at
+its failure time; the retry re-selects a system and never fails; the
+tables learn once, at the final attempt, with the accrued factor.
 """
 
 from __future__ import annotations
@@ -42,9 +47,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.engine import (F32, Workload, _earliest_shared,
-                                     _kahan, _power_totals,
-                                     _push_out_of_outage, _setup, _tier_rows)
+from repro_torch.core.engine import (F32, Workload, _chunks, _draw_cols,
+                                     _earliest_shared, _job_draws, _kahan,
+                                     _power_totals, _push_out_of_outage,
+                                     _setup, _tier_rows, _window_ids)
 from repro_torch.core.policy import BIG, UNCAPPED, Policy, select, select_batched
 from repro_torch.kernels.kth_free.ops import (kth_free_time,
                                               kth_free_time_rows)
@@ -168,9 +174,10 @@ class ConsCarry(NamedTuple):
 
 def event_context(arrs: dict, w: Workload, policy: Policy, lanes: dict,
                   warm_start: bool, placer: str | None = None) -> dict:
-    """Everything a step reads besides its carry: ``_setup``'s tables and
-    per-job draws, the job stream on the device, the power model, and the
-    constant rows the steps push and pop."""
+    """Everything a step reads besides its carry: ``_setup``'s tables, the
+    job stream on the device, the power model, and the constant rows the
+    steps push and pop.  The per-job draws (``engine._job_draws``) join it
+    per chunk."""
     J = len(w.prog)
     if J >= 1 << 24:
         raise ValueError("the event cores keep job ids in float32 columns; "
@@ -455,6 +462,7 @@ def make_event_step(policy: Policy, placer: str | None = None,
         # evaluate job J - 1 behind a BIG arrival floor; never eligible)
         valid = pend < J
         jjs = pend.clamp_max(J - 1)
+        jd = _draw_cols(ctx, jjs)
         ps = prog[jjs]
         t0f = torch.where(valid, cols[..., 0], BIG)
         nreq_rows = arrs["n_req"][ps]                            # [B, Wc, S]
@@ -471,20 +479,20 @@ def make_event_step(policy: Policy, placer: str | None = None,
         draws = ctx["draws"]
         sels_x = select_batched(
             ctx["pol"], c_rows=c_r, t_rows=t_r, runs_rows=r_r, avail_rows=a_r,
-            k=ctx["K"].gather(1, jjs), c_pred_rows=cp_r, t_pred_rows=tp_r,
-            draws=None if draws is None else draws.gather(1, jjs))
+            k=ctx["K"].gather(1, jd), c_pred_rows=cp_r, t_pred_rows=tp_r,
+            draws=None if draws is None else draws.gather(1, jd))
         sels = sels_x % S if tiered else sels_x                  # [B, Wc]
         on_sel = lambda x: x.gather(-1, sels.unsqueeze(-1)).squeeze(-1)  # noqa: E731
         starts_res = on_sel(avails)
 
         # fault draws, keyed by job id
-        fails = ctx["fail"].gather(1, jjs)
+        fails = ctx["fail"].gather(1, jd)
         if retries:      # a retry (rt = 1) never fails again
             first_fail = fails & (cols[..., EVENT_IX["rt"]] == 0)
             scale = torch.where(first_fail, ctx["fv3"].unsqueeze(1), 1.0)
         else:
             scale = torch.where(fails, 1.0 + ctx["fv3"].unsqueeze(1), 1.0)
-        factors = ctx["slow"].gather(1, jjs) * scale
+        factors = ctx["slow"].gather(1, jd) * scale
         ac = ctx["act"][ps, sels_x]                              # [B, Wc, 2]
         T_acts, E_acts = (ac * factors.unsqueeze(-1)).unbind(-1)
         needs = on_sel(nreq_rows)
@@ -660,7 +668,8 @@ def _reserve(ctx, jp, t0, is_retry, retries, node_free, slots, CT, runs):
     B, S = jp.shape[0], ctx["S"]
     arrs = ctx["arrs"]
     p = ctx["prog"][jp]
-    col = lambda x: x.gather(1, jp.unsqueeze(1)).squeeze(1)  # noqa: E731
+    jd = _draw_cols(ctx, jp.unsqueeze(1))
+    col = lambda x: x.gather(1, jd).squeeze(1)  # noqa: E731
     fail = col(ctx["fail"])
     if is_retry:
         first_fail = torch.zeros_like(fail)
@@ -886,18 +895,25 @@ def _event_results(ctx, carry, rec) -> dict:
 
 def _event_run(arrs: dict, w: Workload, policy: Policy, lanes: dict, *,
                warm_start: bool, placer, totals_only: bool,
-               retries: bool = False) -> dict:
+               retries: bool = False, chunk=None) -> dict:
     """Step every lane through the event core for ``policy.queue`` (the
     conservative core, or FCFS / EASY on the event clock) for the static
-    ``step_count`` and return the result fields with a leading [B]."""
+    ``step_count``, in chunks of ``chunk`` steps, and return the result
+    fields with a leading [B]."""
     ctx = event_context(arrs, w, policy, lanes, warm_start, placer)
     cons = policy.queue == "conservative"
     step = (make_cons_step if cons else make_event_step)(
         policy, placer, totals_only, retries)
     carry = (cons_carry0 if cons else event_carry0)(ctx, totals_only)
     rec = None if totals_only else _Record(ctx["B"], ctx["J"], ctx["dev"])
-    for _ in range(step_count(w, policy, retries)):
-        carry, out = step(ctx, carry, BIG)
-        if rec is not None:
-            rec.add(out)
+    for _, n in _chunks(step_count(w, policy, retries), chunk):
+        if chunk is not None:
+            pending = carry.slots[..., 0].long() if cons else carry.pend
+            nxt = carry.a.unsqueeze(1) + torch.arange(n, device=ctx["dev"])
+            ctx["ids"] = _window_ids(pending, nxt, ctx["J"])
+        ctx.update(_job_draws(ctx, ctx.get("ids")))
+        for _ in range(n):
+            carry, out = step(ctx, carry, BIG)
+            if rec is not None:
+                rec.add(out)
     return _event_results(ctx, carry, rec)

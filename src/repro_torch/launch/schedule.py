@@ -14,6 +14,9 @@ with the reference's options and output lines
         --trace tests/data/jscc_sample.swf.gz \
         --queue easy_backfill:window=16 --campaign-k 0,0.1,0.3 \
         --campaign-seeds 2
+    PYTHONPATH=src python -m repro_torch.launch.schedule --device cpu \
+        --jobs 5000 --campaign-k 0,0.1 --campaign-seeds 2 --totals-only \
+        --shards auto --chunk 1024          # sharded + chunked campaign
 
 Runs on the CUDA device by default (``--device cuda``) and raises without
 one; ``--device cpu`` runs the same code on the CPU.
@@ -28,9 +31,11 @@ disciplines: ``fcfs``, ``easy_backfill[:window=W]`` and
 ``conservative[:window=W]``; an SCC power cap (``--power-cap WATTS``)
 and ``--engine events`` run on the event-granular core, which also
 prints the ``peak_power`` / ``capped_delay`` / ``idle_energy`` line.
-The options of parts not ported yet (``--easy-eval unrolled``,
-``--shards``, ``--chunk``) parse and are refused by ``Scheduler`` with
-``NotImplementedError`` naming their ROADMAP item.
+Campaign scale: ``--shards auto|N`` splits the grid's lanes over the
+local devices and ``--chunk SIZE`` runs the steps in SIZE-step windows
+(with ``--totals-only``, memory flat in the number of jobs).
+``--easy-eval unrolled`` parses and is refused by ``Scheduler`` with
+``NotImplementedError`` naming ROADMAP item 15.
 """
 
 from __future__ import annotations

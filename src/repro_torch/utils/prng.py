@@ -15,6 +15,7 @@ uint32 arithmetic runs in int64 and is masked back to 32 bits.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -93,9 +94,11 @@ def uniform(k, shape=(), minval: float = 0.0,
     bits = (random_bits(k, shape) >> 9) | 0x3F800000
     # bits < 2**31, so the int32 view is the float's bit pattern
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    # the bounds as host scalars rounded to float32 (a float32 tensor op
+    # with a Python scalar computes in float32), so that a draw on the
+    # card copies nothing from the host and never synchronises
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return (floats * float(hi - lo) + float(lo)).clamp_min(float(lo))
 
 
 def normal(k, shape=()) -> torch.Tensor:

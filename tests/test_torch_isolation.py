@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``repro_torch`` (and not
-``chip_smoke.py``) imports JAX or the reference package, the entry points
-never fall back to the CPU by themselves, the event-core options run, and
-options outside the ported slice are refused explicitly."""
+``chip_smoke.py``, ``campaign_ab.py`` or the port's examples) imports JAX
+or the reference package, the entry points never fall back to the CPU by
+themselves, the event-core and campaign-scale options run, and options
+outside the ported slice are refused explicitly."""
 
 import ast
 import dataclasses
@@ -49,7 +50,8 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
 
 @pytest.mark.parametrize("path", [*sorted(PKG.rglob("*.py")),
                                   ROOT / "chip_smoke.py",
-                                  ROOT / "campaign_ab.py"],
+                                  ROOT / "campaign_ab.py",
+                                  *sorted(ROOT.glob("examples/torch_*.py"))],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_reference(path):
     tree = ast.parse(path.read_text())
@@ -230,8 +232,20 @@ def test_event_core_options_run_on_the_cpu(kwargs):
     ({"chunk": 1024}, "item 7"),
 ])
 def test_unported_options_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        Scheduler(device="cpu", **kwargs)
+    """Options by ROADMAP item: item 15 is not ported and raises naming
+    it; item 7 (campaign scale) is, so ``shards`` and ``chunk`` run and
+    equal the run without them."""
+    if item != "item 7":
+        with pytest.raises(NotImplementedError, match=item):
+            Scheduler(device="cpu", **kwargs)
+        return
+    w = make_npb_workload(JSCC_SYSTEMS, repeats=3)
+    pol = make_policy("paper", k=np.array([0.0, 0.2], np.float32))
+    base = Scheduler(pol, device="cpu", seeds=[0, 1]).run(w)
+    res = Scheduler(pol, device="cpu", seeds=[0, 1], **kwargs).run(w)
+    for f in ("system", "start", "finish", "energy", "total_energy",
+              "makespan", "C_tab", "T_tab", "runs"):
+        assert torch.equal(getattr(res, f), getattr(base, f)), f
 
 
 @pytest.mark.parametrize("kwargs", [{"placer": "pallas"},

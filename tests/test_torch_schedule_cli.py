@@ -4,16 +4,17 @@
 The option grammar resolves every spelling to the same ``Policy``, fault
 model, engine and scale-out arguments (field for field), and ``main``
 prints the reference's lines, character for character, on the paper
-suite, EASY streams, the SWF fixture and the conservative, power-capped
-and event-engine spellings, the ``peak_power`` line included (``--device
-cpu``).  Options whose part is not ported raise ``NotImplementedError``
-naming their ROADMAP item.
+suite, EASY streams, the SWF fixture, the conservative, power-capped
+and event-engine spellings (the ``peak_power`` line included) and with
+``--shards`` / ``--chunk`` (``--device cpu``).  Options whose part is not
+ported raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 import argparse
 import contextlib
 import io
 import os
+import re
 import sys
 import warnings
 
@@ -148,11 +149,40 @@ def test_main_prints_the_reference_lines(argv):
 @pytest.mark.parametrize("argv,item", [
     (["--easy-eval", "unrolled", "--queue", "easy_backfill"], "item 15"),
     (["--shards", "auto"], "item 7"),
-    (["--chunk", "1024"], "item 7"),
+    (["--shards", "4", "--chunk", "65536"], "item 7"),
 ])
 def test_unported_flags_raise_naming_their_item(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        t_schedule.main(argv + ["--device", "cpu"])
+    """Flags by ROADMAP item: item 15 is not ported and raises naming it;
+    item 7 (campaign scale) is, so ``--shards`` / ``--chunk`` print the
+    reference CLI's lines, or raise its ``ValueError`` where it does (4
+    shards on one device)."""
+    if item != "item 7":
+        with pytest.raises(NotImplementedError, match=item):
+            t_schedule.main(argv + ["--device", "cpu"])
+        return
+    try:
+        ref = _reference_stdout(argv)
+    except ValueError as e:
+        with pytest.raises(ValueError, match=re.escape(str(e))):
+            _port_stdout(argv)
+        return
+    out, _ = _port_stdout(argv)
+    assert out.splitlines() == ref.splitlines()
+
+
+@pytest.mark.parametrize("argv", [
+    ["--chunk", "1024"],
+    ["--jobs", "120", "--scenario", "bursty", "--queue",
+     "easy_backfill:window=8", "--campaign-k", "0,0.1",
+     "--campaign-seeds", "2", "--totals-only", "--shards", "auto",
+     "--chunk", "37"],
+    ["--jobs", "60", "--engine", "events", "--failures", "0.1",
+     "--chunk", "41"],
+], ids=["chunk", "easy_campaign_sharded_chunked", "events_chunked"])
+def test_scale_flags_print_the_reference_lines(argv):
+    ref = _reference_stdout(argv)
+    out, _ = _port_stdout(argv)
+    assert out.splitlines() == ref.splitlines()
 
 
 def test_default_device_is_cuda():
