@@ -127,6 +127,31 @@ Phases, each printing one JSON line:
                --scenario diurnal --queue conservative:window=16`` print
                the facade's totals on the same inputs, the conservative
                ones also its ``peak_power`` line
+  service      the online service, one session (``repro_torch.service``)
+               at the CLI's default capacity of 256 and window 16: seven
+               live sessions replayed submit-before-drive-past, each
+               bit-equal to the batch ``engine="events"`` run of the same
+               scheduler on every field of the reference's
+               ``tests/test_service.py`` tuple: the campaign stream's
+               first 256 jobs with its faults (failure re-queue) under
+               FCFS, EASY, conservative and EASY capped at 45 kW, and the
+               reference ablation's 250-job SWF stream under the three
+               queues; kth_free launched exactly 1 / 2 / 1 times a live
+               step (FCFS / EASY / conservative); the EASY session saved
+               half way, restored into a fresh dispatcher and finished
+               with the same decisions and result; one host sync per
+               ``step_once`` and none per ``submit``; five what-ifs 40
+               jobs into a session leave its carry and job tensors
+               unchanged leaf by leaf; the rollout stopped at its first
+               quiescent check equals the full-length one (steps and ms
+               of both); the device idle share of driving
+               the next 40 jobs; the JSONL CLI as a subprocess over the
+               reference docstring's request stream; decision latency
+               (µs per ``step_once``: mean, p50, p99, max), steps per
+               placed job, what-if ms.  The batch runs and the CLI run in
+               two child processes started before ``cross_device`` (which
+               and ``schedule_cli`` report no times); both end before the
+               first live step
   workloads    the NPB analogues (EP, IS, BT, SP, LU) through
                ``run_benchmark`` at ``small`` and at NPB class A sizes
                (``A``; BT/SP/LU, whose ``small`` is their ``A``, run
@@ -2251,6 +2276,372 @@ def phase_schedule_cli() -> None:
              n_backfilled=ref.n_backfilled.flatten().tolist())
 
 
+#: the online service: the CLI's default session capacity (also the
+#: length of the campaign stream's prefix it replays), and the fields
+#: live == batch compares (the reference's ``tests/test_service.py``
+#: tuple)
+SERVICE_C = 256
+SERVICE_FIELDS = ("system", "start", "finish", "wait", "energy", "runtime",
+                  "backfilled", "total_energy", "makespan", "total_wait",
+                  "slowdown_sum", "max_wait", "n_backfilled", "peak_power",
+                  "idle_energy", "capped_delay", "busy", "C_tab", "T_tab",
+                  "runs")
+SERVICE_CAP = 45e3
+#: the reference CLI docstring's request stream
+#: (``src/repro/launch/scheduler_service.py:9-19``)
+SERVICE_REQUESTS = (
+    {"op": "submit", "prog": "BT", "arrival": 0.0},
+    {"op": "submit", "prog": "LU", "arrival": 5.0},
+    {"op": "drive", "until": 100.0},
+    {"op": "whatif", "prog": "SP"},
+    {"op": "checkpoint"},
+    {"op": "drain"},
+    {"op": "metrics"},
+    {"op": "result"})
+
+
+def _feed(d, w, jobs):
+    """The live protocol: submit each job before driving past its
+    arrival."""
+    for j in jobs:
+        d.drive(until=float(w.arrival[j]))
+        d.submit(int(w.prog[j]), float(w.arrival[j]))
+
+
+def _percentiles(us) -> dict:
+    import numpy as np
+    us = np.asarray(us, np.float64)
+    return dict(mean=float(us.mean()), p50=float(np.percentile(us, 50)),
+                p99=float(np.percentile(us, 99)), max=float(us.max()),
+                n=int(us.size))
+
+
+def _service_runs():
+    """The service phase's seven sessions: (name, workload, queue, faults,
+    kth_free launches a live step, power cap)."""
+    from repro_torch.core import JSCC_SYSTEMS
+    from repro_torch.data import (load_swf, swf_lines, synthetic_swf_arrays,
+                                  workload_from_trace)
+    poisson = _prefix(_event_stream(), SERVICE_C)
+    swf = workload_from_trace(load_swf(swf_lines(
+        *synthetic_swf_arrays(250, 11))), JSCC_SYSTEMS)
+    return (("fcfs", poisson, EVENT_FCFS, CAMPAIGN_FAULTS, 1, None),
+            ("easy", poisson, EASY_QUEUE, CAMPAIGN_FAULTS, 2, None),
+            ("cons", poisson, CONS_QUEUE, CAMPAIGN_FAULTS, 1, None),
+            ("easy_capped", poisson, EASY_QUEUE, CAMPAIGN_FAULTS, 2,
+             SERVICE_CAP),
+            ("swf_fcfs", swf, "fcfs", None, 1, None),
+            ("swf_easy", swf, EASY_QUEUE, None, 2, None),
+            ("swf_cons", swf, CONS_QUEUE, None, 1, None))
+
+
+def _service_scheduler(queue, faults, power_cap):
+    from repro_torch.core import FaultConfig, Scheduler
+    from repro_torch.core.policy import make_policy
+    return Scheduler(make_policy("paper", k=0.10), warm_start=True,
+                     faults=None if faults is None else FaultConfig(**faults),
+                     queue=queue, power_cap=power_cap, engine="events")
+
+
+def service_batch_part(path: str) -> None:
+    """The batch ``engine="events"`` runs on the card that the service
+    phase's live sessions are held against, every SERVICE_FIELDS entry
+    saved to ``path`` (CPU tensors, by session).  Runs in a process of its
+    own (``_service_start``)."""
+    import torch
+    out = {}
+    for name, w, queue, faults, _, cap in _service_runs():
+        res = _service_scheduler(queue, faults, cap).run(w)
+        out[name] = {f: getattr(res, f).cpu() for f in SERVICE_FIELDS}
+    torch.save(out, path)
+
+
+#: the service phase's child processes, started before ``cross_device``
+#: (which, like ``schedule_cli`` after it, reports no times), so that the
+#: batch runs and the CLI run beside those phases and not beside the live
+#: sessions whose latency the service phase measures
+SERVICE_KIDS: dict = {}
+
+
+def _service_start() -> None:
+    """Start the service phase's two children, once: ``service_batch_part``
+    and the JSONL CLI over SERVICE_REQUESTS, their output to files."""
+    import tempfile
+    if SERVICE_KIDS:
+        return
+    tmp = tempfile.TemporaryDirectory(prefix="service_kids_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    kids = {
+        "batch": ([sys.executable, "-c", "import sys, chip_smoke; "
+                   "chip_smoke.service_batch_part(sys.argv[1])",
+                   os.path.join(tmp.name, "batch.pt")], ""),
+        "cli": ([sys.executable, "-m", "repro_torch.launch.scheduler_service",
+                 "--queue", "easy_backfill:window=8", "--power-cap",
+                 "60000", "--checkpoint-dir", os.path.join(tmp.name, "cli")],
+                "\n".join(json.dumps(r) for r in SERVICE_REQUESTS)),
+    }
+    SERVICE_KIDS["tmp"] = tmp
+    for name, (argv, stdin) in kids.items():
+        files = [open(os.path.join(tmp.name, f"{name}.{x}"), "w+")
+                 for x in ("out", "err")]
+        proc = subprocess.Popen(argv, cwd=ROOT, env=env, text=True,
+                                stdin=subprocess.PIPE, stdout=files[0],
+                                stderr=files[1])
+        proc.stdin.write(stdin)
+        proc.stdin.close()
+        SERVICE_KIDS[name] = (time.perf_counter(), files, proc)
+
+
+def _service_join(name: str, timeout: float = 600) -> tuple:
+    """Wait for child ``name``: (seconds from its start, its stdout)."""
+    t0, files, proc = SERVICE_KIDS[name]
+    rc = proc.wait(timeout=timeout)
+    seconds = time.perf_counter() - t0
+    out, err = (f.seek(0) or f.read() for f in files)
+    check(rc == 0, f"service {name} child exit {rc}: {err[-2000:]}")
+    return seconds, out
+
+
+def _service_stop() -> None:
+    """Stop the service children still running; remove their files."""
+    for name in ("batch", "cli"):
+        if name in SERVICE_KIDS:
+            _, files, proc = SERVICE_KIDS.pop(name)
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            for f in files:
+                f.close()
+    if "tmp" in SERVICE_KIDS:
+        SERVICE_KIDS.pop("tmp").cleanup()
+
+
+def _service_session(name, w, queue, faults, calls, counters, latencies,
+                     batch, power_cap=None, ckpt=None):
+    """One live session on the card against ``batch``, the batch run of the
+    same scheduler (``service_batch_part``): the main path with the
+    kth_free count from 0 (``calls`` launches each live step), every
+    SERVICE_FIELDS entry bit-equal, each step's wall time kept in
+    ``latencies``.  With ``ckpt`` (a directory) the session is also saved
+    half way, restored into a fresh dispatcher and finished there: the
+    same remaining decisions and result."""
+    import torch
+    from repro_torch.kernels.kth_free import kth_free_cuda
+    from repro_torch.service import Dispatcher
+    sched = _service_scheduler(queue, faults, power_cap)
+    d = Dispatcher.from_scheduler(sched, w, capacity=SERVICE_C,
+                                  checkpoint_dir=ckpt)
+    lat = []
+    observe = d.metrics.observe_step
+    d.metrics.observe_step = lambda out, dt: (lat.append(dt),
+                                              observe(out, dt))
+    J, half = len(w.prog), len(w.prog) // 2
+    torch.cuda.synchronize()
+    kth_free_cuda.launches = 0
+    t0 = time.perf_counter()
+    _feed(d, w, range(half))
+    if ckpt:
+        d.save()
+    _feed(d, w, range(half, J))
+    d.drain()
+    seconds = time.perf_counter() - t0
+    n_main = kth_free_cuda.launches
+    steps = d.metrics.n_steps
+    _count(counters, "kth_free", f"service.{name}", n_main)
+    check(n_main == calls * steps,
+          f"service {name}: kth_free launches {n_main} != {calls} x "
+          f"{steps} live steps")
+    live = d.result()
+    for f in SERVICE_FIELDS:
+        a, b = batch[f], getattr(live, f).cpu()
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              f"service {name}: live {f} != the batch run's")
+    check(len(d.decisions) == J, f"service {name}: {len(d.decisions)} "
+          f"decisions for {J} jobs")
+    latencies += lat
+    out = dict(jobs=J, live_steps=steps, batch_steps=_event_steps(sched, w),
+               seconds=seconds, ms_per_live_step=seconds / steps * 1e3,
+               kth_free_launches_per_step=n_main / steps,
+               steps_per_placed_job=steps / d.metrics.n_placed,
+               placed=d.metrics.n_placed, n_backfilled=int(live.n_backfilled),
+               decision_latency_us=_percentiles(lat),
+               peak_power=float(live.peak_power),
+               mean_wait=float(live.mean_wait))
+    if ckpt:
+        d2 = Dispatcher.from_scheduler(sched, w, capacity=SERVICE_C,
+                                       checkpoint_dir=ckpt)
+        check(d2.restore() and d2.n_submitted == half,
+              f"service {name}: restore")
+        _feed(d2, w, range(half, J))
+        d2.drain()
+        check(d2.decisions == d.decisions,
+              f"service {name}: restored decisions differ")
+        rest = d2.result()
+        for f in SERVICE_FIELDS:
+            check(torch.equal(getattr(rest, f), getattr(live, f)),
+                  f"service {name}: restored {f} differs")
+        out["checkpoint"] = dict(saved_after=half, equal=True)
+    return d, out
+
+
+def _event_steps(sched, w):
+    from repro_torch.core import events
+    f = sched.faults
+    return events.step_count(w, sched.policy, bool(f and f.failure_prob > 0))
+
+
+def phase_service(counters: dict) -> dict:
+    """The online service on the card: live sessions (the dispatcher over
+    the event cores, window 16, capacity 256) bit-equal to the batch run;
+    checkpoint / restore; what-if purity and latency; one host sync a
+    step; the JSONL CLI as a subprocess; decision latency.  The batch runs
+    and the CLI run in the children of ``_service_start`` (started here if
+    no earlier phase did); checkpoints go to a temporary directory,
+    removed at the end."""
+    import tempfile
+    _service_start()
+    try:
+        with tempfile.TemporaryDirectory(prefix="service_ck_") as tmp:
+            return _service_phase(counters, tmp)
+    finally:
+        _service_stop()
+
+
+def _service_phase(counters: dict, tmp: str) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.core.events import _Record
+    from repro_torch.service import Dispatcher, whatif
+    from repro_torch.service.whatif import (CHECK_EVERY, _rollout,
+                                            rollout_length)
+    from repro_torch.utils.tree import flatten_with_names, map_with_names
+    probe = _sync_count(lambda: torch.ones(1, device="cuda").sum().item())
+    check(probe >= 1, "sync debug mode reports no sync for .item()")
+    runs = _service_runs()
+    poisson = runs[0][1]
+    # both children end before the first live step is timed
+    batch_s, _ = _service_join("batch")
+    batches = torch.load(os.path.join(SERVICE_KIDS["tmp"].name, "batch.pt"))
+    cli_s, cli_out = _service_join("cli")
+    lat, out = [], {}
+    for name, w, queue, faults, calls, cap in runs:
+        d, stats = _service_session(
+            name, w, queue, faults, calls, counters, lat, batches[name],
+            power_cap=cap,
+            ckpt=os.path.join(tmp, name) if name == "easy" else None)
+        if name == "easy":
+            sched = d.scheduler
+        out[name] = stats
+        emit("service", run=name, queue=queue, **stats)
+    check(out["easy_capped"]["peak_power"] <= SERVICE_CAP * (1 + 1e-5),
+          "service: the capped session's peak is over its cap")
+
+    # one host sync per step_once (none per submit), on a fresh EASY
+    # session
+    ck = os.path.join(tmp, "drive")
+    d = Dispatcher.from_scheduler(sched, poisson, capacity=SERVICE_C,
+                                  checkpoint_dir=ck)
+    syncs_submit = _sync_count(lambda: d.submit(int(poisson.prog[0]),
+                                                float(poisson.arrival[0])))
+    syncs_feed = _sync_count(lambda: _feed(d, poisson, range(1, 40)))
+    n0 = d.metrics.n_steps
+    horizon = float(poisson.arrival[40])
+    syncs_steps = _sync_count(lambda: [d.step_once(horizon)
+                                       for _ in range(25)])
+    check(syncs_submit == 0, f"service: submit synchronised "
+          f"{syncs_submit} times")
+    check(syncs_feed == n0, f"service: {syncs_feed} host syncs for {n0} "
+          "steps of 39 drives and submissions")
+    check(syncs_steps == d.metrics.n_steps - n0 == 25,
+          f"service: {syncs_steps} host syncs for 25 step_once calls")
+
+    # what-if mid-session (40 jobs in): the live carry and job tensors
+    # unchanged leaf by leaf; latency
+    before = flatten_with_names(d.carry_snapshot())
+    jobs = [d._ctx[k].clone() for k in ("prog", "arrival", "kjob", "K")]
+    whatif_ms, proj = [], None
+    for prog in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proj = whatif(d, prog)
+        whatif_ms.append((time.perf_counter() - t0) * 1e3)
+    after = flatten_with_names(d.carry_snapshot())
+    check([n for n, _ in before] == [n for n, _ in after], "what-if leaves")
+    for (name, a), (_, b) in zip(before, after):
+        check(torch.equal(a, b), f"service: what-if changed carry {name}")
+    for a, k in zip(jobs, ("prog", "arrival", "kjob", "K")):
+        check(torch.equal(a.nan_to_num(-1.0), d._ctx[k].nan_to_num(-1.0)),
+              f"service: what-if changed the session's {k}")
+    check(proj["job"]["wait"] >= 0 and np.isfinite(proj["makespan"]),
+          "service: what-if projection")
+    # the rollout stopped at its first quiescent check against the
+    # reference's full length, from the same carry: steps, ms, and the
+    # same final carry and record
+    roll = {}
+    for every in (CHECK_EVERY, None):
+        carry = map_with_names(lambda _, x: x.clone(), d._carry)
+        rec = _Record(1, d.capacity, d.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, steps = _rollout(d._step, d._ctx, carry, rec,
+                                rollout_length(d), every)
+        torch.cuda.synchronize()
+        roll[every] = (carry, rec, steps, (time.perf_counter() - t0) * 1e3)
+    (c1, r1, s1, ms1), (c2, r2, s2, ms2) = roll[CHECK_EVERY], roll[None]
+    check(s1 < s2 == rollout_length(d),
+          f"service: rollout steps {s1} early, {s2} full")
+    for (name, a), (_, b) in zip(flatten_with_names(c1),
+                                 flatten_with_names(c2)):
+        check(torch.equal(a, b), f"service: early-stopped rollout {name}")
+    for a, b in ((r1.sel_x, r2.sel_x), (r1.vals, r2.vals), (r1.E, r2.E)):
+        check(torch.equal(a[:, :-1], b[:, :-1]),
+              "service: early-stopped rollout record")
+    rollout = dict(every=CHECK_EVERY, steps_early=s1, ms_early=ms1,
+                   steps_full=s2, ms_full=ms2)
+
+    # the device idle share of driving the next 40 jobs: timed on the
+    # session, profiled on its twin restored from the same checkpoint
+    d.save()
+    twin = Dispatcher.from_scheduler(sched, poisson, capacity=SERVICE_C,
+                                     checkpoint_dir=ck)
+    check(twin.restore(), "service: twin restore")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    before_steps = d.metrics.n_steps
+    _feed(d, poisson, range(40, 80))
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    steps = d.metrics.n_steps - before_steps
+    busy_us, ops = _device_busy_us(lambda: _feed(twin, poisson, range(40, 80)),
+                                   count=True)
+    check(twin.decisions == d.decisions, "service: twin decisions")
+
+    # the JSONL CLI, a subprocess on the card, over the docstring's stream
+    resp = [json.loads(line) for line in cli_out.splitlines() if line]
+    check(len(resp) == len(SERVICE_REQUESTS) and all(r["ok"] for r in resp),
+          f"service CLI responses {resp}")
+    res = dict(
+        decision_latency_us=_percentiles(lat),
+        steps_per_placed_job={k: v["steps_per_placed_job"]
+                              for k, v in out.items()},
+        kth_free_launches_per_step={k: v["kth_free_launches_per_step"]
+                                    for k, v in out.items()},
+        whatif_ms=whatif_ms, whatif_after_jobs=40, whatif_rollout=rollout,
+        host_syncs=dict(submit=syncs_submit, feed_steps=n0,
+                        feed=syncs_feed, step_once_25=syncs_steps),
+        drive=dict(jobs=40, steps=steps, wall_us=wall_us,
+                   device_busy_us=busy_us,
+                   device_ops_per_step=None if ops is None
+                   else ops / steps,
+                   device_idle_share=None if busy_us is None
+                   else 1.0 - busy_us / wall_us),
+        cli=dict(requests=len(SERVICE_REQUESTS),
+                 result=resp[-1].get("totals"), child_seconds=cli_s),
+        batch_child_seconds=batch_s)
+    emit("service", run="summary", **res)
+    return res
+
+
 def _wrappers() -> dict:
     """Every kernel wrapper of the port, by kernel name."""
     from repro_torch.kernels.ep import ep_pass_cuda
@@ -2688,6 +3079,7 @@ def _phases(counters: dict) -> dict:
         "campaign_scale": lambda: phase_campaign_scale(counters),
         "cross_device": phase_cross_device,
         "schedule_cli": phase_schedule_cli,
+        "service": lambda: phase_service(counters),
         "workloads": lambda: phase_workloads(counters),
         "executed_campaign": phase_executed_campaign,
         "serve": lambda: phase_serve(counters, "serve"),
@@ -2719,11 +3111,17 @@ def main(argv=None) -> int:
     phase_build()
     counters: dict = {}
     results, phase_s = {}, {}
-    for name, fn in _phases(counters).items():
-        if only is None or name in only:
-            t0 = time.perf_counter()
-            results[name] = fn()
-            phase_s[name] = time.perf_counter() - t0
+    try:
+        for name, fn in _phases(counters).items():
+            if only is None or name in only:
+                if name in ("cross_device", "schedule_cli") and (
+                        only is None or "service" in only):
+                    _service_start()
+                t0 = time.perf_counter()
+                results[name] = fn()
+                phase_s[name] = time.perf_counter() - t0
+    finally:
+        _service_stop()
     if only is not None:
         emit("done", seconds=time.perf_counter() - t_start, only=only,
              phase_seconds=phase_s)
@@ -2780,7 +3178,9 @@ def main(argv=None) -> int:
                             in results["event_campaign"].items()
                             if "ms_per_step" in v},
          scale_ms_per_step={str(J): results["campaign_scale"]["scale"]
-                            [str(J)]["ms_per_step"] for J in SCALE_JS})
+                            [str(J)]["ms_per_step"] for J in SCALE_JS},
+         service_decision_latency_us=results["service"][
+             "decision_latency_us"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

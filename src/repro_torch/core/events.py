@@ -225,38 +225,40 @@ def _acc0(ctx, totals_only):
     return (z(B, 3), z(B, 3), z(B), z(B))
 
 
-def _common0(ctx, totals_only):
+def _common0(ctx, totals_only, now0=None):
     """The carry fields both cores start from: the opening clock is the
-    first arrival, the running peak the all-idle draw."""
+    first arrival (``now0`` when given: a live session opens at 0), the
+    running peak the all-idle draw."""
     B, dev = ctx["B"], ctx["dev"]
     idle_total = _cluster_power(ctx["idle_mat"].unsqueeze(0),
                                 ctx["power_order"])
+    now = (ctx["arrival"][:1].expand(B).clone() if now0 is None
+           else torch.full((B,), float(now0), dtype=F32, device=dev))
     return dict(
         node_free=ctx["node_free"], node_pow=torch.zeros_like(ctx["node_free"]),
         CT=ctx["CT"], runs=ctx["runs"], acc=_acc0(ctx, totals_only),
         busy=torch.zeros((B, ctx["S"]), dtype=F32, device=dev),
-        a=torch.zeros(B, dtype=torch.int64, device=dev),
-        now=ctx["arrival"][:1].expand(B).clone(),
+        a=torch.zeros(B, dtype=torch.int64, device=dev), now=now,
         nbf=torch.zeros(B, dtype=torch.int32, device=dev),
         peak=idle_total.expand(B).clone(),
         cdel=torch.zeros(B, dtype=F32, device=dev))
 
 
-def event_carry0(ctx: dict, totals_only: bool) -> EventCarry:
-    """The event core's initial carry."""
+def event_carry0(ctx: dict, totals_only: bool, now0=None) -> EventCarry:
+    """The event core's initial carry (clock at ``now0`` when given)."""
     B, Wc = ctx["B"], len(ctx["slot"])
     return EventCarry(
         pend=ctx["sentinel"].expand(B, Wc).clone(),
         cols=ctx["pop_fill"].expand(B, Wc, len(EVENT_COLS)).clone(),
-        **_common0(ctx, totals_only))
+        **_common0(ctx, totals_only, now0))
 
 
-def cons_carry0(ctx: dict, totals_only: bool) -> ConsCarry:
+def cons_carry0(ctx: dict, totals_only: bool, now0=None) -> ConsCarry:
     """The conservative core's initial carry: every slot empty."""
     B, Wc = ctx["B"], len(ctx["slot"])
     return ConsCarry(
         slots=ctx["cons_fill"].expand(B, Wc, len(CONS_COLS)).clone(),
-        **_common0(ctx, totals_only))
+        **_common0(ctx, totals_only, now0))
 
 
 def _next_event(ctx, node_free, a, now):
@@ -352,7 +354,7 @@ def _gate(ctx, table, pbi, node_free, node_pow, now, needs, sels, w_jobs,
     ``forced`` slots may go in the batch run, ``horizon >= BIG``); the
     least eligible slot; and the cap-attributed block time in column
     ``pbi`` of the slot ``table``.  Returns (chosen, placed, gather
-    index, the draw after placing each slot, the table)."""
+    index, the draw after placing each slot, the table, the draw now)."""
     slot, (B, Wc) = ctx["slot"], table.shape[:2]
     p_now = _cluster_power(torch.where(node_free > now.view(B, 1, 1),
                                        node_pow, ctx["idle_mat"]),
@@ -375,17 +377,29 @@ def _gate(ctx, table, pbi, node_free, node_pow, now, needs, sels, w_jobs,
                          torch.minimum(pb, now.unsqueeze(1)), pb)
     table = torch.cat([table[..., :pbi], pb_new.unsqueeze(-1),
                        table[..., pbi + 1:]], -1)
-    return chosen, placed, ci, new_P, table
+    return chosen, placed, ci, new_P, table, p_now
+
+
+#: the live-decision channels of a ``live`` step, in the order of its
+#: ``out["live"]`` row: the reference's (``pushed`` ... ``tier``, ``bf``),
+#: then the final attempt's values and the ids the record scatters by
+LIVE_COLS = ("pushed", "j_push", "placed", "final", "advanced", "start",
+             "now", "qlen", "power", "sys", "tier", "bf", "s0", "finish",
+             "wait", "T", "j_fin", "j_add", "E")
 
 
 def _settle(ctx, carry, horizon, totals_only, *, do_push, next_evt, chosen,
             placed, final, jj, sel, sel_x, need, T_act, E_act, P_ci, pb_ci,
-            s0, finish, wait_tot, T_tot):
+            s0, finish, wait_tot, T_tot, live=False, a=None, start=None,
+            p_now=None, pending=None):
     """The end of a step on both cores, after the placement's tables:
     busy node-seconds, the backfill count, the running peak draw and the
     cap-attributed delay; the clock's advance when nothing else happened
     (never past ``horizon``); the Kahan totals, or the step's result
-    channels.  Returns (acc, busy, now, nbf, peak, cdel, out)."""
+    channels, with ``live`` also the live-decision channels (``a``: the
+    cursor after the push, ``start``: the chosen slot's start, ``p_now``:
+    the draw before placing, ``pending``: the job-id column after the
+    pop).  Returns (acc, busy, now, nbf, peak, cdel, out)."""
     J, now = ctx["J"], carry.now
     busy = carry.busy
     busy.scatter_add_(1, sel.unsqueeze(1), torch.where(
@@ -409,6 +423,16 @@ def _settle(ctx, carry, horizon, totals_only, *, do_push, next_evt, chosen,
                    j_fin=torch.where(final, jj, J), sel_x=sel_x,
                    vals=torch.stack([s0, finish, wait_tot, T_tot,
                                      backfill.to(F32)], 1))
+        if live:
+            out.update(pushed=do_push, j_push=torch.where(do_push, a - 1, J),
+                       placed=placed, final=final, advanced=advance,
+                       start=start, now=now, qlen=(pending < J).sum(1),
+                       power=torch.where(placed, P_ci, p_now), sys=sel,
+                       tier=sel_x // ctx["S"], bf=backfill, s0=s0,
+                       finish=finish, wait=wait_tot, T=T_tot)
+            # one row per lane, so a session copies its step to the host
+            # once (ids and counts are exact in float32 below 2^24)
+            out["live"] = torch.stack([out[c] for c in LIVE_COLS], 1).to(F32)
     return acc, busy, now, nbf, peak, cdel, out
 
 
@@ -424,14 +448,24 @@ def _fusions(easy: bool, B: int, retries: bool) -> dict:
             "T_tot": retries and one_fcfs}
 
 
+def _check_live(live, totals_only):
+    if live and totals_only:
+        raise ValueError("a live step reports per-job channels; it has no "
+                         "totals_only form")
+
+
 def make_event_step(policy: Policy, placer: str | None = None,
-                    totals_only: bool = False, retries: bool = False):
+                    totals_only: bool = False, retries: bool = False,
+                    live: bool = False):
     """The event core's step for ``queue="fcfs"`` or ``"easy_backfill"``:
     ``step(ctx, carry, horizon) -> (carry, out)``.  ``horizon`` (a float)
     gates the clock: ``advance`` never moves ``now`` past it, and the
     stuck valve opens only with ``horizon >= BIG`` (the batch run).
     ``out`` is None with ``totals_only``, else the step's result channels
-    (``record`` scatters them to arrival order)."""
+    (``_Record`` scatters them to arrival order); ``live`` adds the
+    live-decision channels (``LIVE_COLS``) and their row ``out["live"]``
+    for the service dispatcher."""
+    _check_live(live, totals_only)
     Wc = int(policy.window) + 1
     easy = policy.queue == "easy_backfill"
     tiered = policy.tiered
@@ -551,7 +585,7 @@ def make_event_step(policy: Policy, placer: str | None = None,
         # ---- power feasibility, the stuck valve (it forces the head) and
         # the choice
         w_jobs = ctx["w_flat"][ps, sels_x]                       # [B, Wc]
-        chosen, placed, ci, new_P, cols = _gate(
+        chosen, placed, ci, new_P, cols, p_now = _gate(
             ctx, cols, EVENT_IX["pblock"], node_free, node_pow, now, needs,
             sels, w_jobs, elig_res, valid & (slot == 0), do_push, next_evt,
             horizon)
@@ -611,7 +645,8 @@ def make_event_step(policy: Policy, placer: str | None = None,
             next_evt=next_evt, chosen=chosen, placed=placed, final=final,
             jj=jj, sel=sel, sel_x=sel_x, need=need, T_act=T_act,
             E_act=E_act, P_ci=P_ci, pb_ci=pb_ci, s0=s0_ci, finish=finish,
-            wait_tot=wait_tot, T_tot=T_tot)
+            wait_tot=wait_tot, T_tot=T_tot, live=live, a=a, start=start,
+            p_now=p_now, pending=pend)
         return EventCarry(node_free, node_pow, CT, runs, acc, busy, pend,
                           cols, a, now, nbf, peak, cdel), out
 
@@ -712,9 +747,10 @@ def _reserve(ctx, jp, t0, is_retry, retries, node_free, slots, CT, runs):
 
 
 def make_cons_step(policy: Policy, placer: str | None = None,
-                   totals_only: bool = False, retries: bool = False):
+                   totals_only: bool = False, retries: bool = False,
+                   live: bool = False):
     """Conservative backfilling on the event clock: ``step(ctx, carry,
-    horizon) -> (carry, out)`` as ``make_event_step``.
+    horizon) -> (carry, out)`` as ``make_event_step`` (``live`` too).
 
     Every job is reserved at admission, around all earlier pending
     reservations (``_earliest_fit``: hole-aware, the reservations are
@@ -724,6 +760,7 @@ def make_cons_step(policy: Policy, placer: str | None = None,
     reserved rows, the kernel on the card) and the cap allows it; under a
     binding cap starts degrade to ``max(reserved, now)``.  A failed first
     attempt (``retries``) is reserved afresh at its failure time."""
+    _check_live(live, totals_only)
     Wc = int(policy.window) + 1
     NC = len(CONS_COLS)
 
@@ -773,7 +810,7 @@ def make_cons_step(policy: Policy, placer: str | None = None,
 
         # ---- power feasibility, the stuck valve (it forces every
         # resource-eligible slot) and the choice
-        chosen, placed, ci, new_P, slots = _gate(
+        chosen, placed, ci, new_P, slots, p_now = _gate(
             ctx, slots, CONS_IX["pblock"], node_free, node_pow, now, r_need,
             r_sel, slots[..., CONS_IX["wjob"]], elig_res, elig_res, do_push,
             next_evt, horizon)
@@ -832,7 +869,9 @@ def make_cons_step(policy: Policy, placer: str | None = None,
             jj=jj, sel=sel, sel_x=None if totals_only
             else sel + r["tier"].long() * S, need=need, T_act=T_act,
             E_act=E_act, P_ci=P_ci, pb_ci=r["pblock"], s0=s0_ci,
-            finish=finish, wait_tot=wait_tot, T_tot=T_tot)
+            finish=finish, wait_tot=wait_tot, T_tot=T_tot, live=live, a=a,
+            start=start, p_now=p_now,
+            pending=slots[..., 0] if live else None)
         return ConsCarry(node_free, node_pow, CT, runs, acc, busy, slots, a,
                          now, nbf, peak, cdel), out
 

@@ -290,3 +290,44 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                               text=True, timeout=120)
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+def test_service_defaults_to_cuda_and_loads_no_jax(monkeypatch):
+    """The online service (dispatcher, what-if, checkpoints, the JSONL
+    CLI) loads no JAX or ``repro`` module, and its sessions default to
+    CUDA, raising without a card."""
+    code = ("import sys\n"
+            "import repro_torch.service, repro_torch.checkpoint\n"
+            "import repro_torch.launch.scheduler_service\n"
+            "import repro_torch.utils.tree\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    from repro_torch.launch import scheduler_service
+    from repro_torch.service import Dispatcher
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    w = make_npb_workload(JSCC_SYSTEMS)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Dispatcher(w)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Dispatcher.from_scheduler(Scheduler(), w)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        scheduler_service.main([])
+    assert Dispatcher(w, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("argv", [["--pool", "2"],
+                                  ["--decision-log", "decisions.jsonl"]])
+def test_service_pool_options_name_item_10b(argv, capsys):
+    """The reference's multi-session options are refused, naming their
+    ROADMAP item, and never run a single session in their place."""
+    from repro_torch.launch import scheduler_service
+    with pytest.raises(SystemExit) as e:
+        scheduler_service.main(argv + ["--device", "cpu"])
+    assert e.value.code != 0
+    out = capsys.readouterr()
+    assert "item 10b" in out.err and out.out == ""
