@@ -55,7 +55,9 @@ Phases, each printing one JSON line:
                0.5, K in {0, .05, .1, .2, .3} x 4 seeds, stragglers and
                failures, warm start, full and totals_only.  The kernel's
                launch count rises by exactly J per run, the twin placer
-               gives bit-equal results, and the step loop makes no host
+               gives bit-equal results on the first 2,000 jobs (every
+               field against the kernel on them, per-job values against
+               the whole run), and the step loop makes no host
                synchronisation
   easy_campaign  EASY backfilling, window 16, on the reference ablation's
                contended SWF stream (``synthetic_swf_arrays(10_000)``
@@ -78,11 +80,11 @@ Phases, each printing one JSON line:
                totals equal; (b) the same 500 jobs with stragglers only
                (2,004 steps), bit-equal to the arrival core's FCFS; (c)
                event EASY on them, two launches a step; (d) the
-               example's capped conservative campaign (1,000 diurnal
-               jobs, caps 45/52/60 kW and none), one rows launch a step
-               (5,004): peaks under the caps, makespan non-decreasing as
-               the cap tightens; on its first 500 jobs ``totals_only``
-               equal and the uncapped lane equal to an uncapped run;
+               example's capped conservative campaign (the first 500 of
+               its 1,000 diurnal jobs, caps 45/52/60 kW and none), one
+               rows launch a step (2,504): peaks under the caps, makespan
+               non-decreasing as the cap tightens, ``totals_only`` equal
+               and the uncapped lane equal to an uncapped run;
                each with no host sync in the
                step (two short prefixes make as many syncs), ms per step,
                jobs/s, launches and device µs per step by kernel, idle
@@ -105,9 +107,9 @@ Phases, each printing one JSON line:
                shard more than the card count raises ``ValueError``; (c)
                the reference's million-job configuration (two small
                systems, ``ucb``, warm, ``totals_only``, chunk 4,096) on 16
-               K x 4 seeds = 64 lanes at J = 10,000 and 50,000 (cut from
+               K x 4 seeds = 64 lanes at J = 10,000 and 30,000 (cut from
                10^6 for the script's time): peak memory grows by less
-               than one [64, 40,000] f32 array, the monolithic peak at
+               than one [64, 20,000] f32 array, the monolithic peak at
                10,000 beside it, ms per step, jobs/s; (d)
                ``examples/torch_quickstart.py`` and
                ``examples/torch_multi_cluster_campaign.py --jobs 4
@@ -150,8 +152,36 @@ Phases, each printing one JSON line:
                (µs per ``step_once``: mean, p50, p99, max), steps per
                placed job, what-if ms.  The batch runs and the CLI run in
                two child processes started before ``cross_device`` (which
-               and ``schedule_cli`` report no times); both end before the
+               and ``schedule_cli`` report no times); they and the
+               ``service_pool`` phase's two children end before the
                first live step
+  service_pool the online service's session pool
+               (``repro_torch.service.SessionPool``, EASY at window 16,
+               capacity 256, the campaign stream's faults with failure
+               re-queue): (a) 4 sessions on 4 streams (program orders over
+               the campaign stream's first 256 arrivals), differing in K,
+               power cap (one at 45 kW) and seed, fed through all-lane
+               drives, each bit-equal on its decisions and every field of
+               the reference's tuple to an independent ``Dispatcher``;
+               (b) 64 K x seed sessions, lane for lane equal to one batch
+               ``engine="events"`` run of the 64 points (bit-equal; the
+               sums over jobs, which the card reduces in an order that
+               follows the lane count, within rtol 1e-6 and bit-equal to
+               the batch lane's per-job values reduced at one lane); at
+               N = 1, 4 and 64: pool steps, wall µs per pool step (mean,
+               p50, p99, max), the per-session share, kth_free launched
+               exactly 2 times a pool step, one host sync a pool step and
+               none a ``submit``, device operations a pool step and a
+               drive's idle share; (c) the 4-lane pool saved mid-stream
+               through the writer thread, restored into a fresh pool and
+               finished equal to (a)'s, then one lane rolled back while
+               the others keep their state bit for bit, and finished
+               equal; (d) the ``--pool 4 --decision-log`` CLI killed after
+               a checkpoint, ``--restore``d and finished equal to an
+               uninterrupted run, whose log carries every decision with
+               its session.  The independent sessions, the batch run,
+               (c)'s pools and the CLI run in two child processes started
+               beside ``cross_device``
   workloads    the NPB analogues (EP, IS, BT, SP, LU) through
                ``run_benchmark`` at ``small`` and at NPB class A sizes
                (``A``; BT/SP/LU, whose ``small`` is their ``A``, run
@@ -192,6 +222,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import json
 import os
 import subprocess
@@ -211,6 +242,9 @@ BIG = 1e30
 CAMPAIGN_KS = (0.0, 0.05, 0.1, 0.2, 0.3)
 CAMPAIGN_SEEDS = (0, 1, 2, 3)
 CAMPAIGN_J = 10_000
+#: the twin placer's prefix of the campaign stream (its radix twin takes
+#: ~9 ms a step: the whole stream took 84-105 s of the script)
+CAMPAIGN_TWIN_J = 2_000
 
 
 #: a file that also takes every line ``emit`` prints (``--log``)
@@ -322,14 +356,16 @@ def _device_us_per_call(fn, names, iters: int = 200):
     return sum(by_kernel.values()) if by_kernel else None
 
 
-def _device_busy_us(fn, count=False):
+def _device_busy_us(fn, count=False, cpu=True):
     """Device time (µs) of every CUDA kernel, memset and copy one call of
     ``fn`` makes, from a profiler trace (None if the trace is empty);
-    with ``count``, also the number of those device operations."""
+    with ``count``, also the number of those device operations.  Without
+    ``cpu`` the trace records the device alone: the same device
+    operations, a third of the events to read back."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     times = [e.device_time_total for e in prof.events()
@@ -1239,9 +1275,9 @@ def _prefix(w, n):
                                k_job=w.k_job[:n])
 
 
-def _sync_count(fn):
-    """Number of host synchronisations ``fn()`` makes, counted by
-    PyTorch's sync debug mode."""
+def _sync_sites(fn) -> list:
+    """Where ``fn()`` makes a host synchronisation, by PyTorch's sync
+    debug mode: one (file, line) a synchronisation."""
     import torch
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -1250,7 +1286,16 @@ def _sync_count(fn):
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(c.message) for c in caught)
+    # the message of each synchronisation (not the one-time notice that
+    # the mode is a prototype)
+    return [(os.path.basename(c.filename), c.lineno) for c in caught
+            if "called a synchronizing" in str(c.message)]
+
+
+def _sync_count(fn):
+    """Number of host synchronisations ``fn()`` makes, counted by
+    PyTorch's sync debug mode."""
+    return len(_sync_sites(fn))
 
 
 def _launches_per_step(w_small, steps=None, **kw):
@@ -1308,13 +1353,22 @@ def phase_campaign(counters: dict) -> dict:
 
     tot, t_tot, n_tot = _timed_campaign(w, totals_only=True)
     check(n_tot == J, f"totals_only launches {n_tot} != J={J}")
-    twin, t_twin, n_twin = _timed_campaign(w, placer="torch")
+    # the twin placer on the stream's prefix, against the kernel on the
+    # same prefix on every field and the whole run on its per-job values
+    # (a job's placement reads only the jobs before it)
+    wt = _prefix(w, CAMPAIGN_TWIN_J)
+    twin, t_twin, n_twin = _timed_campaign(wt, placer="torch")
     check(n_twin == 0, "placer='torch' must not launch the kernel")
+    part = _campaign(wt)
     for f in ("system", "start", "finish", "wait", "energy", "runtime",
               "total_energy", "total_wait", "slowdown_sum", "makespan",
               "busy", "idle_energy", "C_tab", "T_tab", "runs"):
-        check(torch.equal(getattr(full, f), getattr(twin, f)),
+        check(torch.equal(getattr(part, f), getattr(twin, f)),
               f"kernel and twin placers differ on {f}")
+    for f in ("system", "start", "finish", "wait", "energy", "runtime"):
+        check(torch.equal(getattr(full, f)[..., :CAMPAIGN_TWIN_J],
+                          getattr(twin, f)),
+              f"the twin placer's prefix differs from the whole run on {f}")
     for f in ("makespan", "max_wait", "busy", "C_tab", "T_tab", "runs",
               "idle_energy"):
         check(torch.equal(getattr(full, f), getattr(tot, f)),
@@ -1342,7 +1396,8 @@ def phase_campaign(counters: dict) -> dict:
                seconds_totals_only=t_tot, seconds_twin_placer=t_twin,
                ms_per_step=t_full / J * 1e3,
                ms_per_step_totals_only=t_tot / J * 1e3,
-               ms_per_step_twin_placer=t_twin / J * 1e3,
+               twin_placer_jobs=CAMPAIGN_TWIN_J,
+               ms_per_step_twin_placer=t_twin / CAMPAIGN_TWIN_J * 1e3,
                jobs_per_s=J * B / t_full,
                jobs_per_s_totals_only=J * B / t_tot,
                kth_free_launches_per_step=n_main / J,
@@ -1592,7 +1647,9 @@ EVENT_FCFS = f"fcfs:window={EASY_WINDOW}"
 CONS_QUEUE = f"conservative:window={EASY_WINDOW}"
 STRAGGLERS = dict(straggler_prob=0.05)
 CAPS = (45e3, 52e3, 60e3, float("inf"))
-CAP_J = 1_000
+#: the capped campaign's depth, cut from the example's 1,000 jobs to its
+#: twins' EVENT_TWIN_J for the script's time
+CAP_J = EVENT_TWIN_J
 FCFS_FIELDS = ("system", "tier", "nodes", "start", "finish", "wait",
                "energy", "runtime", "total_energy", "makespan", "total_wait",
                "max_wait", "slowdown_sum", "busy", "C_tab", "T_tab", "runs",
@@ -1609,11 +1666,13 @@ def _event_stream():
 
 
 def _cap_stream():
-    """The example's capped campaign's diurnal stream of CAP_J jobs."""
+    """The example's capped campaign's diurnal stream of 1,000 jobs, its
+    first CAP_J."""
     from repro_torch.core import JSCC_SYSTEMS
     from repro_torch.data import make_stream_workload
-    return make_stream_workload(JSCC_SYSTEMS, CAP_J, arrival="diurnal",
-                                rate=0.8, seed=3)
+    return _prefix(make_stream_workload(JSCC_SYSTEMS, 1_000,
+                                        arrival="diurnal", rate=0.8, seed=3),
+                   CAP_J)
 
 
 def _cap_policy(caps=CAPS):
@@ -1767,14 +1826,11 @@ def phase_event_campaign(counters: dict) -> dict:
         check(peak[i] <= cap * (1 + 1e-5), f"peak {peak[i]} over cap {cap}")
     check(bool((np.diff(mk) <= 0).all()),
           f"makespan must not fall as the cap tightens: {mk.tolist()}")
-    wp = _prefix(wc, EVENT_TWIN_J)
-    capped = _campaign(wp, **kw)
-    _totals_agree(capped, _campaign(wp, totals_only=True, **kw),
-                  "cons_capped")
-    unc = _campaign(wp, policy=make_policy("conservative", k=0.10),
+    _totals_agree(d, _campaign(wc, totals_only=True, **kw), "cons_capped")
+    unc = _campaign(wc, policy=make_policy("conservative", k=0.10),
                     faults=None, seeds=0, queue=CONS_QUEUE)
     for f in EVENT_FIELDS:
-        x, y = getattr(capped, f), getattr(unc, f)
+        x, y = getattr(d, f), getattr(unc, f)
         check(torch.equal(x[-1], y), f"inf-cap lane != uncapped run on {f}")
     put("cons_capped", dict(
         stats, caps=list(CAPS), peak_power=peak.tolist(),
@@ -1833,8 +1889,8 @@ SCALE_EASY_J = 1_000
 SCALE_EVENT_J = 200
 #: (c): the reference's million-job configuration
 #: (``tests/test_sharded_campaign.py:157-181``) on a 64-lane grid, its
-#: J cut from 10^6 to 5 x 10^4 for the script's time
-SCALE_JS = (10_000, 50_000)
+#: J cut from 10^6 to 3 x 10^4 for the script's time
+SCALE_JS = (10_000, 30_000)
 SCALE_CHUNK = 4096
 SCALE_KS = 16
 SCALE_SEEDS = (0, 1, 2, 3)
@@ -2001,7 +2057,7 @@ def _suppz_round(device, path) -> list:
 def scale_part() -> dict:
     """Part (c) of ``campaign_scale``, run in a process of its own beside
     the rest of the phase (its peak memory is that process's alone): the
-    reference's million-job configuration at J = 10,000 and 50,000,
+    reference's million-job configuration at J = 10,000 and 30,000,
     chunked, and at 10,000 monolithic."""
     import torch
     from repro_torch.data import synthetic_swf_arrays, workload_from_arrays
@@ -2048,9 +2104,9 @@ def phase_campaign_scale(counters: dict) -> dict:
     more than the devices raises ``ValueError``.  (c) the reference's
     million-job configuration (two small systems, ``ucb``, warm,
     ``totals_only``, chunk 4,096) on 16 K x 4 seeds = 64 lanes at J =
-    10,000 and 50,000 (cut from 10^6: a step takes over a millisecond, so
+    10,000 and 30,000 (cut from 10^6: a step takes over a millisecond, so
     10^6 steps would outlast the script): peak memory grows by less than
-    one [64, 40,000] f32 array (``scale_part``).  (d)
+    one [64, 20,000] f32 array (``scale_part``).  (d)
     ``examples/torch_quickstart.py`` and
     ``examples/torch_multi_cluster_campaign.py --jobs 4 --sim-jobs 500``
     exit 0 on the card; a SUPPZ round decides as on the CPU.  (c) and
@@ -2343,45 +2399,54 @@ def _service_scheduler(queue, faults, power_cap):
                      queue=queue, power_cap=power_cap, engine="events")
 
 
-def service_batch_part(path: str) -> None:
+def service_batch_part(tmp: str) -> None:
     """The batch ``engine="events"`` runs on the card that the service
     phase's live sessions are held against, every SERVICE_FIELDS entry
-    saved to ``path`` (CPU tensors, by session).  Runs in a process of its
-    own (``_service_start``)."""
+    saved to ``tmp/batch.pt`` (CPU tensors, by session).  Runs in a
+    process of its own (``_service_start``)."""
     import torch
     out = {}
     for name, w, queue, faults, _, cap in _service_runs():
         res = _service_scheduler(queue, faults, cap).run(w)
         out[name] = {f: getattr(res, f).cpu() for f in SERVICE_FIELDS}
-    torch.save(out, path)
+    torch.save(out, os.path.join(tmp, "batch.pt"))
 
 
-#: the service phase's child processes, started before ``cross_device``
+#: the service phases' child processes, started before ``cross_device``
 #: (which, like ``schedule_cli`` after it, reports no times), so that the
-#: batch runs and the CLI run beside those phases and not beside the live
-#: sessions whose latency the service phase measures
+#: batch runs, the independent sessions and the CLI runs go beside those
+#: phases and not beside the live sessions and pools whose latency the
+#: service phases measure: by name, (start time, output files, process,
+#: its temporary directory)
 SERVICE_KIDS: dict = {}
+#: the children each service phase reads
+KID_GROUPS = {"service": ("batch", "cli"), "service_pool": ("pool",
+                                                             "pool_cli")}
 
 
-def _service_start() -> None:
-    """Start the service phase's two children, once: ``service_batch_part``
-    and the JSONL CLI over SERVICE_REQUESTS, their output to files."""
-    import tempfile
-    if SERVICE_KIDS:
-        return
-    tmp = tempfile.TemporaryDirectory(prefix="service_kids_")
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    kids = {
-        "batch": ([sys.executable, "-c", "import sys, chip_smoke; "
-                   "chip_smoke.service_batch_part(sys.argv[1])",
-                   os.path.join(tmp.name, "batch.pt")], ""),
-        "cli": ([sys.executable, "-m", "repro_torch.launch.scheduler_service",
+def _kid_command(name: str, tmp: str) -> tuple:
+    """(argv, standard input) of child ``name``, writing into ``tmp``."""
+    part = lambda fn: [sys.executable, "-c", "import sys, chip_smoke; "  # noqa: E731
+                       f"chip_smoke.{fn}(sys.argv[1])", tmp]
+    if name == "cli":
+        return ([sys.executable, "-m", "repro_torch.launch.scheduler_service",
                  "--queue", "easy_backfill:window=8", "--power-cap",
-                 "60000", "--checkpoint-dir", os.path.join(tmp.name, "cli")],
-                "\n".join(json.dumps(r) for r in SERVICE_REQUESTS)),
-    }
-    SERVICE_KIDS["tmp"] = tmp
-    for name, (argv, stdin) in kids.items():
+                 "60000", "--checkpoint-dir", os.path.join(tmp, "ck")],
+                "\n".join(json.dumps(r) for r in SERVICE_REQUESTS))
+    return part({"batch": "service_batch_part", "pool": "service_pool_part",
+                 "pool_cli": "service_pool_cli_part"}[name]), ""
+
+
+def _service_start(phases=tuple(KID_GROUPS)) -> None:
+    """Start the children of the service phases ``phases`` that are not
+    running yet, their output to files."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    for name in (n for phase in phases for n in KID_GROUPS[phase]):
+        if name in SERVICE_KIDS:
+            continue
+        tmp = tempfile.TemporaryDirectory(prefix=f"service_{name}_")
+        argv, stdin = _kid_command(name, tmp.name)
         files = [open(os.path.join(tmp.name, f"{name}.{x}"), "w+")
                  for x in ("out", "err")]
         proc = subprocess.Popen(argv, cwd=ROOT, env=env, text=True,
@@ -2389,31 +2454,42 @@ def _service_start() -> None:
                                 stderr=files[1])
         proc.stdin.write(stdin)
         proc.stdin.close()
-        SERVICE_KIDS[name] = (time.perf_counter(), files, proc)
+        SERVICE_KIDS[name] = (time.perf_counter(), files, proc, tmp)
+
+
+def _kid_dir(name: str) -> str:
+    return SERVICE_KIDS[name][3].name
+
+
+#: (seconds from its start, stdout) of each child joined
+KID_JOINED: dict = {}
 
 
 def _service_join(name: str, timeout: float = 600) -> tuple:
-    """Wait for child ``name``: (seconds from its start, its stdout)."""
-    t0, files, proc = SERVICE_KIDS[name]
-    rc = proc.wait(timeout=timeout)
-    seconds = time.perf_counter() - t0
-    out, err = (f.seek(0) or f.read() for f in files)
-    check(rc == 0, f"service {name} child exit {rc}: {err[-2000:]}")
-    return seconds, out
+    """Wait for child ``name`` (once): (seconds from its start to its
+    first join, its stdout)."""
+    if name not in KID_JOINED:
+        t0, files, proc, _ = SERVICE_KIDS[name]
+        rc = proc.wait(timeout=timeout)
+        seconds = time.perf_counter() - t0
+        out, err = (f.seek(0) or f.read() for f in files)
+        check(rc == 0, f"service {name} child exit {rc}: {err[-2000:]}")
+        KID_JOINED[name] = (seconds, out)
+    return KID_JOINED[name]
 
 
-def _service_stop() -> None:
-    """Stop the service children still running; remove their files."""
-    for name in ("batch", "cli"):
+def _service_stop(names=None) -> None:
+    """Stop the children ``names`` (default: all) still running; remove
+    their files."""
+    for name in list(SERVICE_KIDS if names is None else names):
         if name in SERVICE_KIDS:
-            _, files, proc = SERVICE_KIDS.pop(name)
+            _, files, proc, tmp = SERVICE_KIDS.pop(name)
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
             for f in files:
                 f.close()
-    if "tmp" in SERVICE_KIDS:
-        SERVICE_KIDS.pop("tmp").cleanup()
+            tmp.cleanup()
 
 
 def _service_session(name, w, queue, faults, calls, counters, latencies,
@@ -2499,12 +2575,12 @@ def phase_service(counters: dict) -> dict:
     no earlier phase did); checkpoints go to a temporary directory,
     removed at the end."""
     import tempfile
-    _service_start()
+    _service_start(("service",))
     try:
         with tempfile.TemporaryDirectory(prefix="service_ck_") as tmp:
             return _service_phase(counters, tmp)
     finally:
-        _service_stop()
+        _service_stop(KID_GROUPS["service"])
 
 
 def _service_phase(counters: dict, tmp: str) -> dict:
@@ -2519,10 +2595,14 @@ def _service_phase(counters: dict, tmp: str) -> dict:
     check(probe >= 1, "sync debug mode reports no sync for .item()")
     runs = _service_runs()
     poisson = runs[0][1]
-    # both children end before the first live step is timed
+    # every child ends before the first live step is timed (the pool
+    # phase's too, when they run)
     batch_s, _ = _service_join("batch")
-    batches = torch.load(os.path.join(SERVICE_KIDS["tmp"].name, "batch.pt"))
+    batches = torch.load(os.path.join(_kid_dir("batch"), "batch.pt"))
     cli_s, cli_out = _service_join("cli")
+    for name in KID_GROUPS["service_pool"]:
+        if name in SERVICE_KIDS:
+            _service_join(name)
     lat, out = [], {}
     for name, w, queue, faults, calls, cap in runs:
         d, stats = _service_session(
@@ -2639,6 +2719,483 @@ def _service_phase(counters: dict, tmp: str) -> dict:
                  result=resp[-1].get("totals"), child_seconds=cli_s),
         batch_child_seconds=batch_s)
     emit("service", run="summary", **res)
+    return res
+
+
+#: the session pool phase: pool sizes, (a)'s four sessions (K, power cap;
+#: seed = the session's index), (b)'s 64 K x seed points, the job where
+#: (c) saves, and the probe window (jobs) of the sync count and the
+#: profiled drive
+POOL_NS = (1, 4, 64)
+POOL_KS = (0.05, 0.10, 0.20, 0.10)
+POOL_CAPS = (None, None, None, SERVICE_CAP)
+POOL_GRID_KS = 16
+POOL_GRID_SEEDS = (0, 1, 2, 3)
+POOL_SAVE_AT = SERVICE_C // 2
+POOL_PROBE = (10, 20)
+#: the ``--pool 4`` CLI child's stream: 8 jobs a session over one arrival
+#: grid, each session its own program order; ``POOL_CLI_HEAD`` jobs before
+#: the checkpoint and the kill
+POOL_CLI_ARGV = ("--pool", "4", "--queue", "easy_backfill:window=16",
+                 "--warm-start", "--capacity", "16", "--failures", "0.3")
+POOL_CLI_JOBS = 8
+POOL_CLI_HEAD = 4
+
+
+def _pool_workload():
+    """The pool's catalog and arrival grid: the campaign stream's first
+    SERVICE_C jobs (the service phase's Poisson stream)."""
+    return _prefix(_event_stream(), SERVICE_C)
+
+
+def _pool_streams(w, n):
+    """The program order of each of ``n`` sessions over ``w``'s arrival
+    grid: four distinct orders for (a) (the stream's own, then seeded
+    shuffles), the stream's own for every one of (b)'s points."""
+    import numpy as np
+    if n == 64:
+        return [w.prog] * n
+    rng = np.random.default_rng(7)
+    return ([np.asarray(w.prog)]
+            + [rng.permutation(w.prog) for _ in range(3)])[:n]
+
+
+def _pool_scheds(n):
+    """The sessions' schedulers: EASY at window 16, the campaign's faults
+    (stragglers and failure re-queue), warm; (a)'s four (K, cap, seed) or
+    (b)'s 64 K x seed points in the batch grid's lane order; N = 1 is
+    (a)'s first."""
+    import numpy as np
+    from repro_torch.core import FaultConfig, Scheduler
+    from repro_torch.core.policy import make_policy
+    mk = lambda k, cap, seed: Scheduler(  # noqa: E731
+        make_policy("paper", k=float(k)), warm_start=True,
+        faults=FaultConfig(**CAMPAIGN_FAULTS), queue=EASY_QUEUE,
+        power_cap=cap, seeds=seed, engine="events")
+    if n == 64:
+        ks = np.linspace(0.0, 0.35, POOL_GRID_KS).astype(np.float32)
+        return [mk(k, None, s) for k in ks for s in POOL_GRID_SEEDS]
+    return [mk(k, cap, i) for i, (k, cap)
+            in enumerate(zip(POOL_KS, POOL_CAPS))][:n]
+
+
+def _pool_grid_scheduler():
+    """(b)'s batch run: the 64 points as one grid (K x seed)."""
+    import numpy as np
+    from repro_torch.core import FaultConfig, Scheduler
+    from repro_torch.core.policy import make_policy
+    ks = np.linspace(0.0, 0.35, POOL_GRID_KS).astype(np.float32)
+    return Scheduler(make_policy("paper", k=ks), warm_start=True,
+                     faults=FaultConfig(**CAMPAIGN_FAULTS), queue=EASY_QUEUE,
+                     seeds=POOL_GRID_SEEDS, engine="events")
+
+
+def service_pool_part(tmp: str) -> None:
+    """What the pool phase is held against, on the card: (a)'s four
+    sessions each as an independent ``Dispatcher`` fed its stream job by
+    job, and (b)'s 64 points as one batch ``engine="events"`` run; the
+    decisions and every SERVICE_FIELDS entry saved to ``tmp/pool.pt``
+    (CPU tensors).  Runs in a process of its own (``_service_start``)."""
+    import torch
+    from repro_torch.service import Dispatcher
+    w = _pool_workload()
+    out = {"sessions": []}
+    for sched, progs in zip(_pool_scheds(4), _pool_streams(w, 4)):
+        d = Dispatcher.from_scheduler(sched, w, capacity=SERVICE_C)
+        for j in range(SERVICE_C):
+            d.drive(until=float(w.arrival[j]))
+            d.submit(int(progs[j]), float(w.arrival[j]))
+        d.drain()
+        res = d.result()
+        out["sessions"].append(dict(
+            decisions=d.decisions,
+            fields={f: getattr(res, f).cpu() for f in SERVICE_FIELDS}))
+    res = _pool_grid_scheduler().run(w)
+    out["grid"] = {f: getattr(res, f).cpu().reshape(
+        (-1,) + tuple(getattr(res, f).shape[2:])) for f in SERVICE_FIELDS}
+    out["restore"] = _pool_restore_part(w, os.path.join(tmp, "ck"))
+    torch.save(out, os.path.join(tmp, "pool.pt"))
+
+
+def _pool_result(pool, i) -> dict:
+    """Session ``i``'s decisions and SERVICE_FIELDS (CPU tensors)."""
+    res = pool.result(i)
+    return dict(decisions=list(pool.sessions[i].decisions),
+                fields={f: getattr(res, f).cpu() for f in SERVICE_FIELDS})
+
+
+def _pool_restore_part(w, ck) -> dict:
+    """(c): (a)'s 4-lane pool fed to job POOL_SAVE_AT and saved through the
+    writer thread (``blocking=False``), restored into a fresh pool and
+    finished; then lane 1 rolled back to the checkpoint while lanes 0, 2
+    and 3 keep their state (carry leaves and record rows compared before
+    and after), and finished again.  Returns the sessions' results, for
+    the phase to hold against its uninterrupted pool."""
+    from repro_torch.service import SessionPool
+    progs = _pool_streams(w, 4)
+    pool = SessionPool(_pool_scheds(4), w, capacity=SERVICE_C,
+                       checkpoint_dir=ck)
+    _pool_feed(pool, w, progs, 0, POOL_SAVE_AT)
+    check(pool.save(blocking=False) == [0] * 4, "service_pool (c): save")
+    pool.close()                          # the writer's save lands
+    pool = SessionPool(_pool_scheds(4), w, capacity=SERVICE_C,
+                       checkpoint_dir=ck)
+    check(pool.restore() and [d.n_submitted for d in pool.sessions]
+          == [POOL_SAVE_AT] * 4, "service_pool (c): restore")
+    _pool_feed(pool, w, progs, POOL_SAVE_AT, SERVICE_C)
+    pool.drain()
+    out = {"restored": [_pool_result(pool, i) for i in range(4)]}
+    keep = {i: _lane_state(pool, i) for i in (0, 2, 3)}
+    check(pool.restore(session=1)
+          and pool.sessions[1].n_submitted == POOL_SAVE_AT,
+          "service_pool (c): restore of session 1")
+    moved = [i for i, before in keep.items()
+             if not _same_tensors(before, _lane_state(pool, i))]
+    _pool_feed(pool, w, progs, POOL_SAVE_AT, SERVICE_C, session=1)
+    pool.drain(session=1)
+    moved += [i for i, before in keep.items()
+              if not _same_tensors(before, _lane_state(pool, i))]
+    out.update(rolled_back=_pool_result(pool, 1), lanes_moved=moved)
+    pool.close()
+    return out
+
+
+def _pool_cli_requests():
+    """(head, tail, finish) of the ``--pool 4`` CLI run: session i's job j
+    is program ``(i + j) % 5`` at 20 j seconds."""
+    sub = lambda i, j: {"op": "submit", "session": i,  # noqa: E731
+                        "prog": (i + j) % 5, "arrival": 20.0 * j}
+    head = [sub(i, j) for j in range(POOL_CLI_HEAD) for i in range(4)]
+    tail = [sub(i, j) for j in range(POOL_CLI_HEAD, POOL_CLI_JOBS)
+            for i in range(4)]
+    finish = ([{"op": "drain"}]
+              + [{"op": "result", "session": i} for i in range(4)]
+              + [{"op": "metrics"}])
+    return head, tail, finish
+
+
+def service_pool_cli_part(tmp: str) -> None:
+    """The ``--pool 4 --decision-log`` CLI on the card, three processes:
+    one fed the head of the stream, a drive and a checkpoint, then killed
+    (SIGKILL) once the checkpoint has answered, and beside it one fed the
+    whole stream uninterrupted; then one started with ``--restore`` and
+    fed the rest.  Responses, decision logs and each process's seconds
+    saved to ``tmp/pool_cli.json``."""
+    head, tail, finish = _pool_cli_requests()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.scheduler_service",
+            *POOL_CLI_ARGV]
+    ck = ["--checkpoint-dir", os.path.join(tmp, "ck")]
+    log = lambda n: ["--decision-log", os.path.join(tmp, f"{n}.jsonl")]  # noqa: E731
+    text = lambda reqs: "".join(json.dumps(r) + "\n" for r in reqs)  # noqa: E731
+    start = lambda argv: (time.perf_counter(), subprocess.Popen(  # noqa: E731
+        argv, cwd=ROOT, env=env, text=True, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+    out, seconds = {}, {}
+    # the first (answer the head, a drive and the checkpoint, then die)
+    # and the uninterrupted one, side by side
+    first = head + [{"op": "drive", "until": 20.0 * POOL_CLI_HEAD},
+                    {"op": "checkpoint"}]
+    t1, p1 = start(base + ck + log("first"))
+    t2, p2 = start(base + log("solo"))
+    p1.stdin.write(text(first))
+    p1.stdin.flush()
+    out["first"] = [json.loads(p1.stdout.readline()) for _ in first]
+    p1.kill()
+    out["first_rc"] = p1.wait()
+    seconds["first"] = time.perf_counter() - t1
+    runs = {"solo": (t2, p2, head + tail + finish)}
+    t3, p3 = start(base + ck + ["--restore"] + log("second"))
+    runs["second"] = (t3, p3, tail + finish)
+    for name, (t0, proc, reqs) in runs.items():
+        stdout, stderr = proc.communicate(text(reqs), timeout=600)
+        seconds[name] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"pool CLI {name}: {stderr[-2000:]}")
+        out[name] = [json.loads(x) for x in stdout.splitlines() if x]
+    out["logs"] = {}
+    for name in ("first", "second", "solo"):
+        with open(os.path.join(tmp, f"{name}.jsonl")) as f:
+            out["logs"][name] = [json.loads(x) for x in f if x.strip()]
+    out["seconds"] = seconds
+    with open(os.path.join(tmp, "pool_cli.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _pool_feed(pool, w, progs, lo, hi, session=None):
+    """Drive the pool (all lanes, or ``session``) to each arrival of jobs
+    ``lo`` .. ``hi - 1`` and submit them."""
+    for j in range(lo, hi):
+        t = float(w.arrival[j])
+        pool.drive(t, session=session)
+        for i in range(pool.n) if session is None else (session,):
+            pool.submit(i, int(progs[i][j]), t)
+
+
+def _lane_state(pool, i):
+    """Lane ``i``'s carry leaves and per-job record (the sentinel column,
+    which every step placing nothing writes, left out), as copies."""
+    from repro_torch.utils.tree import flatten_with_names
+    rec = pool._rec
+    return ([x[i].clone() for _, x in flatten_with_names(pool._carry)]
+            + [x[i, :-1].clone() for x in (rec.E, rec.sel_x, rec.vals)])
+
+
+def _same_tensors(a, b) -> bool:
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and bool((x.nan_to_num(-1.0)
+                                     == y.nan_to_num(-1.0)).all())
+        for x, y in zip(a, b))
+
+
+#: the sums over jobs, which the card reduces in an order that follows
+#: the lane count of the result ([1, J] for a session, [64, J] for (b)'s
+#: batch run)
+POOL_SUMS = ("total_energy", "total_wait", "slowdown_sum")
+
+
+def _one_lane_sums(fields) -> dict:
+    """The sums over jobs of one lane's per-job ``fields`` (CPU tensors
+    [J]) reduced on the card as a one-lane result reduces them
+    (``events._event_results``: runtime and energy laid out in pairs)."""
+    import torch
+    T, E = torch.stack([fields["runtime"], fields["energy"]], -1)[None] \
+        .cuda().unbind(-1)
+    wait = fields["wait"][None].cuda().contiguous()
+    return {"total_energy": E.sum(-1)[0], "total_wait": wait.sum(-1)[0],
+            "slowdown_sum": ((wait + T) / T).sum(-1)[0]}
+
+
+def _pool_check(pool, i, want, what, lanes_apart=False):
+    """Session ``i`` of ``pool`` against ``want`` (decisions, when given,
+    and fields): every SERVICE_FIELDS entry bit-equal; with
+    ``lanes_apart`` (``want`` a lane of a wider batch run) the sums over
+    jobs bit-equal to ``want``'s per-job values reduced at one lane and
+    within rtol 1e-6 of ``want``'s own sums.  Returns the largest
+    relative difference of those sums."""
+    import torch
+    res = pool.result(i)
+    if want.get("decisions") is not None:
+        check(pool.sessions[i].decisions == want["decisions"],
+              f"service_pool {what}: session {i} decisions differ")
+    one = _one_lane_sums(want["fields"]) if lanes_apart else {}
+    worst = 0.0
+    for f in SERVICE_FIELDS:
+        a, b = want["fields"][f], getattr(res, f).cpu()
+        check(a.dtype == b.dtype, f"service_pool {what}: {f} dtype")
+        if f in one:
+            check(torch.equal(one[f].cpu(), b), f"service_pool {what}: "
+                  f"session {i} {f} != its jobs' values summed at one lane")
+            rel = float(((a - b).abs() / a.abs().clamp_min(1e-30)).max())
+            check(rel <= 1e-6, f"service_pool {what}: session {i} {f} "
+                  f"rel {rel}")
+            worst = max(worst, rel)
+        else:
+            check(torch.equal(a, b),
+                  f"service_pool {what}: session {i} {f} differs")
+    return worst
+
+
+def _pool_timed(n, w, counters):
+    """The pool of ``n`` sessions fed the whole stream through all-lane
+    drives and drained, timed: the main path with the kth_free count from
+    0 (exactly 2 launches a pool step), the wall of every pool step."""
+    import torch
+    from repro_torch.kernels.kth_free import kth_free_cuda
+    from repro_torch.service import SessionPool
+    progs = _pool_streams(w, n)
+    t_build = time.perf_counter()
+    pool = SessionPool(_pool_scheds(n), w, capacity=SERVICE_C)
+    t_build = time.perf_counter() - t_build
+    lat = []
+    m0 = pool.sessions[0].metrics
+    observe = m0.observe_step
+    m0.observe_step = lambda out, dt: (lat.append(dt * n), observe(out, dt))
+    torch.cuda.synchronize()
+    kth_free_cuda.launches = 0
+    t0 = time.perf_counter()
+    _pool_feed(pool, w, progs, 0, SERVICE_C)
+    pool.drain()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, steps = kth_free_cuda.launches, pool.n_pool_steps
+    _count(counters, "kth_free", f"service_pool.N{n}", launches)
+    check(launches == 2 * steps, f"service_pool N={n}: kth_free launches "
+          f"{launches} != 2 x {steps} pool steps")
+    check(len(lat) == steps, "service_pool: a step's wall time went missing")
+    for d in pool.sessions:
+        check(len(d.decisions) == SERVICE_C, f"service_pool N={n}: "
+              f"{len(d.decisions)} decisions for {SERVICE_C} jobs")
+    us = _percentiles(lat)
+    return pool, dict(
+        sessions=n, jobs_per_session=SERVICE_C, pool_steps=steps,
+        seconds=seconds, build_seconds=t_build, wall_us_per_step=us,
+        share_us_per_session_step=us["mean"] / n,
+        kth_free_launches_per_step=launches / steps,
+        decisions_per_second=n * SERVICE_C / seconds)
+
+
+def _pool_probe(n, w):
+    """On a fresh pool of ``n``: the host syncs of submitting one job to
+    every session (none) and of the drives and submissions of the jobs
+    before POOL_PROBE[0] (one a pool step); the wall of the drives of the
+    next POOL_PROBE jobs, then the next as many profiled: device
+    operations a pool step and the device's idle share (device µs a
+    profiled step over wall µs a timed one)."""
+    import torch
+    from repro_torch.service import SessionPool
+    progs = _pool_streams(w, n)
+    lo, hi = POOL_PROBE
+    pool = SessionPool(_pool_scheds(n), w, capacity=SERVICE_C)
+    t = float(w.arrival[0])
+    # what earlier phases left is released first, so no release is counted
+    gc.collect()
+    sites_submit = _sync_sites(lambda: [pool.submit(i, int(progs[i][0]), t)
+                                        for i in range(n)])
+    sites_feed = _sync_sites(lambda: _pool_feed(pool, w, progs, 1, lo))
+    syncs_submit, syncs_feed = len(sites_submit), len(sites_feed)
+    steps_feed = pool.n_pool_steps
+    check(syncs_submit == 0, f"service_pool N={n}: {n} submits made "
+          f"{syncs_submit} host syncs at {sites_submit}")
+    check(syncs_feed == steps_feed, f"service_pool N={n}: {syncs_feed} "
+          f"host syncs for {steps_feed} pool steps, at "
+          f"{sorted(set(sites_feed))}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _pool_feed(pool, w, progs, lo, hi)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    steps = pool.n_pool_steps - steps_feed
+    s0 = pool.n_pool_steps
+    busy_us, ops = _device_busy_us(lambda: _pool_feed(
+        pool, w, progs, hi, 2 * hi - lo), count=True, cpu=False)
+    prof_steps = pool.n_pool_steps - s0
+    pool.close()
+    return dict(
+        host_syncs=dict(submit_all_sessions=syncs_submit,
+                        feed_pool_steps=steps_feed, feed=syncs_feed),
+        drive=dict(jobs=hi - lo, pool_steps=steps, wall_us=wall_us,
+                   profiled_steps=prof_steps, device_busy_us=busy_us,
+                   device_ops_per_step=None if ops is None
+                   else ops / prof_steps,
+                   device_idle_share=None if busy_us is None
+                   else 1.0 - busy_us / prof_steps / (wall_us / steps)))
+
+
+def phase_service_pool(counters: dict) -> dict:
+    """The online service's session pool on the card (EASY, window 16,
+    capacity 256, the campaign stream's faults with failure re-queue):
+    (a) 4 sessions on 4 streams (program orders over one arrival grid),
+    differing in K, cap (one at 45 kW) and seed, each bit-equal on its
+    decisions and every SERVICE_FIELDS entry to an independent
+    ``Dispatcher``; (b) 64 K x seed sessions lane for lane equal to one
+    batch ``engine="events"`` run (bit-equal, but the sums over jobs,
+    which the card reduces in an order that follows the lane count:
+    within rtol 1e-6, and bit-equal to the batch lane's per-job values
+    reduced at one lane); at N = 1, 4 and 64 the wall per pool step, the
+    per-session share, kth_free launches a pool step (exactly 2), host
+    syncs (one a pool step, none a submit), device operations a pool
+    step and a drive's idle share; (c) the 4-lane pool saved mid-stream
+    through the writer, restored into a fresh pool and finished equal to
+    (a)'s, then one lane rolled back while the others keep their state,
+    and finished equal again; (d) the ``--pool 4 --decision-log`` CLI
+    killed after a checkpoint, ``--restore``d, equal to an uninterrupted
+    run.  The independent sessions, the batch run, (c)'s pools and the
+    CLI run in the children of ``_service_start``."""
+    _service_start(("service_pool",))
+    try:
+        return _service_pool_phase(counters)
+    finally:
+        _service_stop(KID_GROUPS["service_pool"])
+
+
+def _service_pool_phase(counters: dict) -> dict:
+    import torch
+    from repro_torch.service import SessionPool
+    w = _pool_workload()
+    parts, t_part = {}, [time.perf_counter()]
+
+    def lap(name):                        # seconds of each part
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    ref_s, _ = _service_join("pool")
+    ref = torch.load(os.path.join(_kid_dir("pool"), "pool.pt"))
+    out = {}
+    lap("join")
+    # (a) and N = 4; N = 1 on (a)'s first
+    pool4, out[4] = _pool_timed(4, w, counters)
+    lap("N=4")
+    for i in range(4):
+        _pool_check(pool4, i, ref["sessions"][i], "(a)")
+    pool1, out[1] = _pool_timed(1, w, counters)
+    _pool_check(pool1, 0, ref["sessions"][0], "N=1")
+    pool1.close()
+    lap("N=1")
+    # (b) and N = 64
+    pool64, out[64] = _pool_timed(64, w, counters)
+    lap("N=64")
+    out[64]["sums_rel_to_batch_max"] = max(
+        _pool_check(pool64, i, {"fields": {
+            f: x[i] for f, x in ref["grid"].items()}}, "(b)",
+            lanes_apart=True) for i in range(64))
+    pool64.close()
+    lap("(b) checks")
+    for n in POOL_NS:
+        out[n].update(_pool_probe(n, w))
+        lap(f"probe N={n}")
+        emit("service_pool", run=f"N={n}", **out[n])
+
+    # (c), run in the child: the restored pool and the rolled-back lane
+    # against the uninterrupted pool (a)
+    rest = ref["restore"]
+    for i in range(4):
+        _pool_check(pool4, i, rest["restored"][i], "(c) restored")
+    _pool_check(pool4, 1, rest["rolled_back"], "(c) rolled back")
+    check(not rest["lanes_moved"], "service_pool (c): rolling session 1 "
+          f"back moved lanes {rest['lanes_moved']}")
+    pool4.close()
+    lap("(c)")
+
+    # (d) the CLI child: killed after its checkpoint, restored, finished
+    cli_s, _ = _service_join("pool_cli")
+    with open(os.path.join(_kid_dir("pool_cli"), "pool_cli.json")) as f:
+        cli = json.load(f)
+    head, tail, finish = _pool_cli_requests()
+    first, second, solo = cli["first"], cli["second"], cli["solo"]
+    check(all(r["ok"] for r in first + second + solo),
+          "service_pool CLI: a request failed")
+    check(first[-1]["steps"] == [0, 0, 0, 0] and cli["first_rc"] != 0,
+          "service_pool CLI: checkpoint, then killed")
+    banner = second[0]
+    check(banner["resumed"] and banner["sessions"] == 4
+          and banner["n_submitted"] == [POOL_CLI_HEAD] * 4,
+          f"service_pool CLI banner {banner}")
+    check(solo[-5:-1] == second[-5:-1],
+          "service_pool CLI: restored results differ from uninterrupted")
+    key = lambda r: (r["session"], r["job"])  # noqa: E731
+    logs = cli["logs"]
+    decided = [{"session": int(i), **d} for r in solo
+               for i, ds in (r.get("decisions") or {}).items() for d in ds]
+    check(sorted(logs["solo"], key=key) == sorted(decided, key=key)
+          and len(decided) == 4 * POOL_CLI_JOBS,
+          "service_pool CLI: the decision log misses decisions")
+    check(all(r in logs["solo"] for r in logs["first"] + logs["second"]),
+          "service_pool CLI: a logged decision of the killed or restored "
+          "run is not the uninterrupted run's")
+    res = dict(
+        by_n={str(n): out[n] for n in POOL_NS},
+        kth_free_launches_per_step={str(n): out[n][
+            "kth_free_launches_per_step"] for n in POOL_NS},
+        restore=dict(saved_after=POOL_SAVE_AT, equal=True,
+                     lane_rolled_back=1, others_unchanged=True),
+        cli=dict(sessions=4, jobs_per_session=POOL_CLI_JOBS,
+                 killed_after=POOL_CLI_HEAD, equal=True,
+                 logged={k: len(v) for k, v in logs.items()},
+                 child_seconds=cli_s, process_seconds=cli["seconds"]),
+        reference_child_seconds=ref_s, part_seconds=parts)
+    lap("(d)")
+    emit("service_pool", run="summary", **res)
     return res
 
 
@@ -3080,6 +3637,7 @@ def _phases(counters: dict) -> dict:
         "cross_device": phase_cross_device,
         "schedule_cli": phase_schedule_cli,
         "service": lambda: phase_service(counters),
+        "service_pool": lambda: phase_service_pool(counters),
         "workloads": lambda: phase_workloads(counters),
         "executed_campaign": phase_executed_campaign,
         "serve": lambda: phase_serve(counters, "serve"),
@@ -3114,9 +3672,10 @@ def main(argv=None) -> int:
     try:
         for name, fn in _phases(counters).items():
             if only is None or name in only:
-                if name in ("cross_device", "schedule_cli") and (
-                        only is None or "service" in only):
-                    _service_start()
+                groups = [p for p in KID_GROUPS
+                          if only is None or p in only]
+                if name in ("cross_device", "schedule_cli") and groups:
+                    _service_start(groups)
                 t0 = time.perf_counter()
                 results[name] = fn()
                 phase_s[name] = time.perf_counter() - t0
@@ -3180,7 +3739,10 @@ def main(argv=None) -> int:
          scale_ms_per_step={str(J): results["campaign_scale"]["scale"]
                             [str(J)]["ms_per_step"] for J in SCALE_JS},
          service_decision_latency_us=results["service"][
-             "decision_latency_us"])
+             "decision_latency_us"],
+         service_pool_wall_us_per_step={
+             n: v["wall_us_per_step"] for n, v
+             in results["service_pool"]["by_n"].items()})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

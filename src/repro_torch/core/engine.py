@@ -61,6 +61,7 @@ from repro_torch.kernels.kth_free.ops import (check_mode, kth_free_time,
                                               kth_free_time_shared)
 from repro_torch.utils import prng
 from repro_torch.utils.fp import fma
+from repro_torch.utils.tree import flatten_with_names, map_with_names
 
 F32 = torch.float32
 
@@ -205,10 +206,20 @@ def _job_draws(st: dict, jobs=None) -> dict:
     if st["objective"] == "random":
         draws = prng.randint(prng.fold_in(st["sel_key"][:, None, :], jj), (),
                              0, st["FS"])
-    kjob = st["kjob"] if jobs is None else st["kjob"][jobs]
+    kjob = st["kjob"] if jobs is None else _per_lane(st["kjob"], jobs)
     return dict(slow=slow, fail=fail,
                 factor=_fault_factors(slow, fail, st["fvec"]), draws=draws,
                 K=torch.where(torch.isnan(kjob), st["k"][:, None], kjob))
+
+
+def _per_lane(stream, idx):
+    """A job stream read at job ids ``idx``: ``stream`` [J], the one
+    stream every lane reads (a batch run; ``idx`` of any shape), or
+    [B, J], one stream a lane (a session pool; ``idx`` [B, k]).  The
+    batch run keeps its stream one-dimensional: a [1, J] copy would be
+    a job-sized tensor of two dimensions, which a chunked run must not
+    make (``tests/test_torch_chunked_memory.py``)."""
+    return stream[idx] if stream.dim() == 1 else stream.gather(1, idx)
 
 
 def _chunks(length: int, chunk):
@@ -376,7 +387,7 @@ def _setup(arrs: dict, w: Workload, policy: Policy, lanes: dict,
     T_true, C_true, E_true = arrs["T_true"], arrs["C_true"], arrs["E_true"]
     P, S = T_true.shape
     N = arrs["free0"].shape[-1]
-    J = len(w.prog)
+    J = np.shape(w.prog)[-1]
     B = lanes["k"].shape[0]
     tiered = policy.tiered
     tt = tier_tables(arrs, policy.freq_tiers) if tiered else None
@@ -398,6 +409,7 @@ def _setup(arrs: dict, w: Workload, policy: Policy, lanes: dict,
              if tiered else torch.stack([T_true, E_true], -1)),
         sel_key=sel_key, fault_key=fault_key, fvec=lanes["fvec"],
         k=lanes["k"], objective=policy.objective,
+        # [J], or [B, J] in a session pool (``_per_lane``)
         kjob=torch.as_tensor(np.asarray(w.k_job, np.float32), device=dev),
         pol=replace(policy, ucb_scale=lanes["ucb_scale"],
                     freq_weight=lanes["freq_weight"]),
@@ -787,6 +799,24 @@ def _lane_split(run, arrs_on, lanes: dict, devices, out_device) -> dict:
             for i, dev in enumerate(devices)]
     return {name: torch.cat([o[name].to(out_device) for o in outs])[:B]
             for name in outs[0]}
+
+
+def stack_sessions(trees):
+    """Stack N one-lane session trees of one structure (carries, lane
+    dicts, job streams: every leaf [1, ...]) along the lane axis into the
+    pool's [N, ...] tree, which the steps advance as N lanes.  Leaves must
+    agree in shape, which the capacity-padded sessions guarantee."""
+    trees = list(trees)
+    leaves = [dict(flatten_with_names(t)) for t in trees]
+    return map_with_names(
+        lambda name, _: torch.cat([f[name] for f in leaves]), trees[0])
+
+
+def index_session(tree, i: int):
+    """Session ``i`` of a stacked pool tree, as a one-lane tree of copies
+    (the inverse of ``stack_sessions`` for one lane): the steps write the
+    pool's tensors in place, so a view would change under its reader."""
+    return map_with_names(lambda _, x: x[i:i + 1].clone(), tree)
 
 
 #: tells "core= not passed" from an explicit ``core=None``

@@ -49,8 +49,9 @@ import torch
 
 from repro_torch.core.engine import (F32, Workload, _chunks, _draw_cols,
                                      _earliest_shared, _job_draws, _kahan,
-                                     _power_totals, _push_out_of_outage,
-                                     _setup, _tier_rows, _window_ids)
+                                     _per_lane, _power_totals,
+                                     _push_out_of_outage, _setup, _tier_rows,
+                                     _window_ids)
 from repro_torch.core.policy import BIG, UNCAPPED, Policy, select, select_batched
 from repro_torch.kernels.kth_free.ops import (kth_free_time,
                                               kth_free_time_rows)
@@ -175,10 +176,14 @@ class ConsCarry(NamedTuple):
 def event_context(arrs: dict, w: Workload, policy: Policy, lanes: dict,
                   warm_start: bool, placer: str | None = None) -> dict:
     """Everything a step reads besides its carry: ``_setup``'s tables, the
-    job stream on the device, the power model, and the constant rows the
+    job stream on the device ([J], every lane's; or [B, J] when ``w``'s
+    ``prog`` / ``arrival`` / ``k_job`` are 2-D, one stream a lane, as a
+    session pool holds them), the power model, and the constant rows the
     steps push and pop.  The per-job draws (``engine._job_draws``) join it
-    per chunk."""
-    J = len(w.prog)
+    per chunk.  ``site_lanes`` is the lane count whose fused multiply-add
+    sites the steps take (``_fusions``): B here; a session pool sets
+    None, its own map."""
+    J = np.shape(w.prog)[-1]
     if J >= 1 << 24:
         raise ValueError("the event cores keep job ids in float32 columns; "
                          f"J must stay below 2^24, got {J}")
@@ -202,6 +207,7 @@ def event_context(arrs: dict, w: Workload, policy: Policy, lanes: dict,
         prog=torch.as_tensor(np.asarray(w.prog).astype(np.int64), device=dev),
         arrival=torch.as_tensor(np.asarray(w.arrival, np.float32),
                                 device=dev),
+        site_lanes=B,
         outage=arrs.get("outage"),
         idle_mat=torch.where(exists, arrs["idle_w"][:, None], 0.0),
         pc=pc, capped=pc < UNCAPPED,
@@ -232,7 +238,7 @@ def _common0(ctx, totals_only, now0=None):
     B, dev = ctx["B"], ctx["dev"]
     idle_total = _cluster_power(ctx["idle_mat"].unsqueeze(0),
                                 ctx["power_order"])
-    now = (ctx["arrival"][:1].expand(B).clone() if now0 is None
+    now = (ctx["arrival"][..., 0].expand(B).clone() if now0 is None
            else torch.full((B,), float(now0), dtype=F32, device=dev))
     return dict(
         node_free=ctx["node_free"], node_pow=torch.zeros_like(ctx["node_free"]),
@@ -268,7 +274,7 @@ def _next_event(ctx, node_free, a, now):
     B = now.shape[0]
     nxt = torch.where(node_free > now.view(B, 1, 1), node_free,
                       BIG).amin((1, 2))
-    arr_next = arrival[a.clamp_max(J - 1)]
+    arr_next = _per_lane(arrival, a.clamp_max(J - 1).unsqueeze(1)).squeeze(1)
     nxt = torch.minimum(nxt, torch.where((a < J) & (arr_next > now),
                                          arr_next, BIG))
     if "out_ends" in ctx:
@@ -353,8 +359,10 @@ def _gate(ctx, table, pbi, node_free, node_pow, now, needs, sels, w_jobs,
     event left, which only a cap below the idle floor causes, the
     ``forced`` slots may go in the batch run, ``horizon >= BIG``); the
     least eligible slot; and the cap-attributed block time in column
-    ``pbi`` of the slot ``table``.  Returns (chosen, placed, gather
-    index, the draw after placing each slot, the table, the draw now)."""
+    ``pbi`` of the slot ``table``.  A [B] ``horizon`` (a pool's) opens the
+    valve in its drained lanes (``horizon >= BIG``) only.  Returns
+    (chosen, placed, gather index, the draw after placing each slot, the
+    table, the draw now)."""
     slot, (B, Wc) = ctx["slot"], table.shape[:2]
     p_now = _cluster_power(torch.where(node_free > now.view(B, 1, 1),
                                        node_pow, ctx["idle_mat"]),
@@ -363,9 +371,12 @@ def _gate(ctx, table, pbi, node_free, node_pow, now, needs, sels, w_jobs,
     power_ok = ~ctx["capped"].unsqueeze(1) | (new_P <= ctx["pc"].unsqueeze(1))
     elig0 = elig_res & power_ok
     elig = elig0
-    if horizon >= BIG:
+    per_lane = isinstance(horizon, torch.Tensor)
+    if per_lane or horizon >= BIG:
         stuck = (forced.any(1) & ~do_push & ~elig0.any(1)
                  & (next_evt >= BIG))
+        if per_lane:
+            stuck = stuck & (horizon >= BIG)
         elig = elig0 | (forced & stuck.unsqueeze(1))
     chosen, placed, ci = _choose(elig, slot, Wc)
 
@@ -410,7 +421,7 @@ def _settle(ctx, carry, horizon, totals_only, *, do_push, next_evt, chosen,
     cdel = carry.cdel + torch.where(placed & (pb_ci < BIG), now - pb_ci, 0.0)
 
     advance = ~do_push & ~placed & (next_evt < BIG)
-    if horizon < BIG:
+    if isinstance(horizon, torch.Tensor) or horizon < BIG:
         advance = advance & (next_evt <= horizon)
     now = torch.where(advance, next_evt, now)
 
@@ -436,16 +447,29 @@ def _settle(ctx, carry, horizon, totals_only, *, do_push, next_evt, chosen,
     return acc, busy, now, nbf, peak, cdel, out
 
 
-def _fusions(easy: bool, B: int, retries: bool) -> dict:
-    """Where the reference's compiled event step fuses a multiply-add:
-    with retries the table update fuses ``truth * fac`` and, at one FCFS
-    lane, ``old * n`` with the retry's runtime ``accT + T * factor``
-    fused too.  Read from its results on the CPU; each cell of the map
-    (queue x one lane or several x retries x tiers) is held against the
-    reference by ``tests/test_torch_fusion_map.py``."""
-    one_fcfs = B == 1 and not easy
-    return {"obs": retries and not one_fcfs,
-            "T_tot": retries and one_fcfs}
+def _fusions(queue: str, lanes, retries: bool) -> dict:
+    """Where the reference's compiled steps fuse a multiply-add, for
+    ``queue`` and the context's ``site_lanes`` (``lanes``): ``obs``, the
+    table update fuses ``truth * fac`` (else ``old * n``); ``T_tot``, the
+    retry's runtime ``accT + T * factor`` is fused; ``fin``, the
+    conservative reservation's finish is fused.  In a batch run: with
+    retries the event step fuses ``truth * fac`` and, at one FCFS lane,
+    ``old * n`` with the retry's runtime fused too; the conservative step
+    fuses ``truth * fac`` with retries, and the finish at one lane.  A
+    session pool (``lanes`` None) fuses as the reference's pool does,
+    whose steps run every lane as one session under ``vmap``: ``truth *
+    fac`` always, the retry's runtime and the finish never.  Read from
+    the reference's results on the CPU; each cell of the batch map (queue
+    x one lane or several x retries x tiers) is held by
+    ``tests/test_torch_fusion_map.py``, the pool's by
+    ``tests/test_torch_service_pool.py``."""
+    if lanes is None:
+        return {"obs": True, "T_tot": False, "fin": False}
+    if queue == "conservative":
+        return {"obs": retries, "T_tot": False, "fin": lanes == 1}
+    one_fcfs = lanes == 1 and queue != "easy_backfill"
+    return {"obs": retries and not one_fcfs, "T_tot": retries and one_fcfs,
+            "fin": False}
 
 
 def _check_live(live, totals_only):
@@ -461,6 +485,8 @@ def make_event_step(policy: Policy, placer: str | None = None,
     ``step(ctx, carry, horizon) -> (carry, out)``.  ``horizon`` (a float)
     gates the clock: ``advance`` never moves ``now`` past it, and the
     stuck valve opens only with ``horizon >= BIG`` (the batch run).
+    A [B] tensor ``horizon`` gates each lane by its own (a session pool:
+    held lanes stay where they are, their steps no-ops on the carry).
     ``out`` is None with ``totals_only``, else the step's result channels
     (``_Record`` scatters them to arrival order); ``live`` adds the
     live-decision channels (``LIVE_COLS``) and their row ``out["live"]``
@@ -474,13 +500,14 @@ def make_event_step(policy: Policy, placer: str | None = None,
         J, S, N, B = ctx["J"], ctx["S"], ctx["N"], ctx["B"]
         slot, arrival, prog = ctx["slot"], ctx["arrival"], ctx["prog"]
         arrs, outage, capped = ctx["arrs"], ctx["outage"], ctx["capped"]
-        fuse = _fusions(easy, B, retries)
+        fuse = _fusions(policy.queue, ctx["site_lanes"], retries)
         (node_free, node_pow, CT, runs, acc, busy, pend, cols, a, now, nbf,
          peak, cdel) = carry
 
         # ---- push: admit the next arrival if due and there is room
         size0 = (pend < J).sum(1)
-        arr_a = arrival[a.clamp_max(J - 1)]
+        arr_a = _per_lane(arrival, a.clamp_max(J - 1).unsqueeze(1)) \
+            .squeeze(1)
         do_push = (a < J) & (size0 < Wc) & (arr_a <= now)
         at = do_push.unsqueeze(1) & (slot == size0.clamp_max(Wc - 1)
                                      .unsqueeze(1))
@@ -497,7 +524,7 @@ def make_event_step(policy: Policy, placer: str | None = None,
         valid = pend < J
         jjs = pend.clamp_max(J - 1)
         jd = _draw_cols(ctx, jjs)
-        ps = prog[jjs]
+        ps = _per_lane(prog, jjs)
         t0f = torch.where(valid, cols[..., 0], BIG)
         nreq_rows = arrs["n_req"][ps]                            # [B, Wc, S]
         kths, avails = _earliest_shared(node_free, nreq_rows,
@@ -696,13 +723,15 @@ def _earliest_fit(ctx, need, t0, Tdur, node_free, slots):
     return fit if Tdur.dim() == 3 else fit.squeeze(1)
 
 
-def _reserve(ctx, jp, t0, is_retry, retries, node_free, slots, CT, runs):
+def _reserve(ctx, jp, t0, is_retry, retries, node_free, slots, CT, runs,
+             fused_fin):
     """Admission of job ``jp`` [B] arriving at ``t0`` [B]: its fault draw,
     hole-aware earliest fit and selection, as the reservation columns
-    ``CONS_COLS[8:]`` [B, 10]."""
+    ``CONS_COLS[8:]`` [B, 10]; ``fused_fin``: the finish is one fused
+    multiply-add (``_fusions``)."""
     B, S = jp.shape[0], ctx["S"]
     arrs = ctx["arrs"]
-    p = ctx["prog"][jp]
+    p = _per_lane(ctx["prog"], jp.unsqueeze(1)).squeeze(1)
     jd = _draw_cols(ctx, jp.unsqueeze(1))
     col = lambda x: x.gather(1, jd).squeeze(1)  # noqa: E731
     fail = col(ctx["fail"])
@@ -734,10 +763,9 @@ def _reserve(ctx, jp, t0, is_retry, retries, node_free, slots, CT, runs):
     on_x = lambda x: x.reshape(B, -1).gather(1, sel_x.unsqueeze(1)).squeeze(1)  # noqa: E731
     start, T_act = on_x(avail), on_x(Tdur)
     E_res = ctx["act"][p, sel_x, 1] * factor
-    # the reservation's finish: one fused multiply-add at one lane, as
-    # the reference's compiled step computes it, else a plain add (held
-    # by ``tests/test_torch_fusion_map.py``)
-    fin = (fma(ctx["act"][p, sel_x, 0], factor, start) if B == 1
+    # the reservation's finish: one fused multiply-add where the
+    # reference's compiled step computes it so, else a plain add
+    fin = (fma(ctx["act"][p, sel_x, 0], factor, start) if fused_fin
            else start + T_act)
     return torch.stack([
         sel.to(F32), start, fin, T_act, E_res,
@@ -770,14 +798,15 @@ def make_cons_step(policy: Policy, placer: str | None = None,
         outage, capped = ctx["outage"], ctx["capped"]
         (node_free, node_pow, CT, runs, acc, busy, slots, a, now, nbf, peak,
          cdel) = carry
+        fuse = _fusions("conservative", ctx["site_lanes"], retries)
 
         # ---- push: admit and reserve the next arrival if due and room
         size0 = (slots[..., 0] < J).sum(1)
         jp = a.clamp_max(J - 1)
-        arr_a = arrival[jp]
+        arr_a = _per_lane(arrival, jp.unsqueeze(1)).squeeze(1)
         do_push = (a < J) & (size0 < Wc) & (arr_a <= now)
         vals = _reserve(ctx, jp, arr_a, False, retries, node_free, slots, CT,
-                        runs)
+                        runs, fuse["fin"])
         at = do_push.unsqueeze(1) & (slot == size0.clamp_max(Wc - 1)
                                      .unsqueeze(1))
         newv = torch.cat([jp.to(F32).unsqueeze(1), arr_a.unsqueeze(1),
@@ -819,7 +848,7 @@ def make_cons_step(policy: Policy, placer: str | None = None,
         row = slots.gather(1, ci.unsqueeze(-1).expand(B, 1, NC)).squeeze(1)
         r = {name: row[:, i] for i, name in enumerate(CONS_COLS)}
         jj = r["pend"].long().clamp_max(J - 1)
-        p = prog[jj]
+        p = _per_lane(prog, jj.unsqueeze(1)).squeeze(1)
         sel = r["sel"].long()
         need = r["need"].long().clamp_min(1)
         T_act, E_act, fac = r["T"], r["E"], r["fac"]
@@ -840,7 +869,7 @@ def make_cons_step(policy: Policy, placer: str | None = None,
                  r["wjob"] / need.to(F32))
         fac_tot = r["accF"] + fac if retries else fac
         _table_update(CT, runs, ctx["truth"], S, p, sel, fac_tot, final,
-                      retries)
+                      fuse["obs"])
 
         # ---- pop the chosen slot
         keep = (slot < chosen.unsqueeze(1)).unsqueeze(-1)
@@ -852,7 +881,7 @@ def make_cons_step(policy: Policy, placer: str | None = None,
             # time, around the table as it now stands
             T_tot, wait_tot = r["accT"] + T_act, r["accW"] + wait_step
             vals2 = _reserve(ctx, jj, finish, True, retries, node_free,
-                             slots, CT, runs)
+                             slots, CT, runs, fuse["fin"])
             size2 = (slots[..., 0] < J).sum(1, keepdim=True)
             at2 = failed_now.unsqueeze(1) & (slot == size2.clamp_max(Wc - 1))
             newv2 = torch.cat([torch.stack(
@@ -887,6 +916,15 @@ class _Record:
         self.E = torch.zeros((B, J + 1), dtype=F32, device=dev)
         self.sel_x = torch.zeros((B, J + 1), dtype=torch.int64, device=dev)
         self.vals = torch.zeros((B, J + 1, 5), dtype=F32, device=dev)
+
+    def lane(self, i: int) -> "_Record":
+        """Lane ``i`` as a one-lane record of views: what the steps add to
+        the whole record shows in it, and what is copied into it lands
+        in the whole record (a session pool's member)."""
+        rec = _Record.__new__(_Record)
+        rec.E, rec.sel_x, rec.vals = (x[i:i + 1] for x in
+                                      (self.E, self.sel_x, self.vals))
+        return rec
 
     def add(self, out):
         j_add, j_fin = out["j_add"].unsqueeze(1), out["j_fin"].unsqueeze(1)

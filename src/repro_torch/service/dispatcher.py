@@ -187,16 +187,21 @@ class Dispatcher:
         self._save_step = 0
 
     # ------------------------------------------------------------ intake
-    def _validate_intake(self, prog: int, t: float):
-        if self.n_submitted >= self.capacity:
+    def _validate_intake(self, prog: int, t: float, *, queued: int = 0,
+                         last: float | None = None):
+        """The submit-time checks, shared with the pool's buffered intake
+        (``queued`` / ``last``: its not yet flushed jobs and the last
+        one's arrival)."""
+        if self.n_submitted + queued >= self.capacity:
             raise RuntimeError(f"session full: capacity {self.capacity}")
         if not 0 <= int(prog) < self.w.T_true.shape[0]:
             raise ValueError(f"prog {prog} not in the facility catalog "
                              f"(P={self.w.T_true.shape[0]})")
         if t < self.now:
             raise ValueError(f"arrival {t} is in the past (now={self.now})")
-        if self.n_submitted and t < float(
-                self._arrival_h[self.n_submitted - 1]):
+        if last is None and self.n_submitted:
+            last = float(self._arrival_h[self.n_submitted - 1])
+        if last is not None and t < last:
             raise ValueError("submissions must be arrival-ordered")
 
     def _write_job(self, ctx, j: int, prog: int, t: float, k):
@@ -238,7 +243,13 @@ class Dispatcher:
                                       float(np.float32(horizon)))
         self._rec.add(out)
         rec = _host_record(out["live"][0].tolist())   # the one sync
-        dt_us = (time.perf_counter() - t0) * 1e6
+        self._fold(rec, (time.perf_counter() - t0) * 1e6)
+        return rec
+
+    def _fold(self, rec: dict, dt_us: float) -> None:
+        """Fold one step's live row (``_host_record``) into the session:
+        the clock, a final placement's decision, the metrics (``dt_us``:
+        the step's wall time, or a pool step's share of it)."""
         self._now = rec["now"]
         if rec["final"] and rec["j_fin"] < self.capacity:
             self.decisions.append({
@@ -248,7 +259,6 @@ class Dispatcher:
                 "tier": rec["tier"], "power": rec["power"],
                 "now": rec["now"]})
         self.metrics.observe_step(rec, dt_us)
-        return rec
 
     def _budget(self) -> int:
         return 16 * self.capacity + self._n_out + 64

@@ -6,6 +6,8 @@ outside the ported slice are refused explicitly."""
 
 import ast
 import dataclasses
+import io
+import json
 import os
 import subprocess
 import sys
@@ -298,6 +300,7 @@ def test_service_defaults_to_cuda_and_loads_no_jax(monkeypatch):
     CUDA, raising without a card."""
     code = ("import sys\n"
             "import repro_torch.service, repro_torch.checkpoint\n"
+            "import repro_torch.service.pool, repro_torch.service.writer\n"
             "import repro_torch.launch.scheduler_service\n"
             "import repro_torch.utils.tree\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -320,14 +323,26 @@ def test_service_defaults_to_cuda_and_loads_no_jax(monkeypatch):
     assert Dispatcher(w, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("argv", [["--pool", "2"],
-                                  ["--decision-log", "decisions.jsonl"]])
-def test_service_pool_options_name_item_10b(argv, capsys):
-    """The reference's multi-session options are refused, naming their
-    ROADMAP item, and never run a single session in their place."""
+@pytest.mark.parametrize("case", ["cli_pool_on_cpu", "replicate_on_cuda"])
+def test_service_pool_runs_on_cpu_and_defaults_to_cuda(case, capsys,
+                                                       monkeypatch):
+    """The session pool: ``--pool 2 --device cpu`` serves a request of
+    the ``{"session": i}`` envelope on the CPU; ``SessionPool.replicate``
+    of a default scheduler raises without a card, naming
+    ``device='cpu'``."""
     from repro_torch.launch import scheduler_service
-    with pytest.raises(SystemExit) as e:
-        scheduler_service.main(argv + ["--device", "cpu"])
-    assert e.value.code != 0
-    out = capsys.readouterr()
-    assert "item 10b" in out.err and out.out == ""
+    from repro_torch.service import SessionPool
+    if case == "cli_pool_on_cpu":
+        req = {"op": "submit", "session": 1, "prog": "BT", "arrival": 0.0}
+        monkeypatch.setattr(sys, "stdin", io.StringIO(
+            json.dumps(req) + "\n"))
+        scheduler_service.main(["--pool", "2", "--device", "cpu",
+                                "--capacity", "4"])
+        out = capsys.readouterr().out.splitlines()
+        assert [json.loads(line) for line in out] == [
+            {"ok": True, "session": 1, "job": 0, "now": 0.0}]
+    else:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        w = make_npb_workload(JSCC_SYSTEMS)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            SessionPool.replicate(Scheduler(), 2, w)

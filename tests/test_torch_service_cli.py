@@ -165,3 +165,113 @@ def test_kill_and_restore_matches_uninterrupted(tmp_path):
     assert len(decided) == 4
     assert solo[-1]["totals"] == second[-1]["totals"]
     assert solo[-1]["n_jobs"] == second[-1]["n_jobs"] == 4
+
+
+# ------------------------------------------------------------ pool mode
+
+POOL = ["--pool", "4"]
+#: four distinct per-session program orders over one shared arrival grid
+PROGS = [["BT", "LU", "SP", "EP"], ["LU", "BT", "EP", "SP"],
+         ["SP", "EP", "BT", "LU"], ["EP", "SP", "LU", "BT"]]
+
+
+def _psub(i, j):
+    return {"op": "submit", "session": i,
+            "prog": PROGS[i][j], "arrival": 30.0 * j}
+
+
+def test_handle_pool_matches_the_reference(tmp_path):
+    """The ``--pool`` protocol in process: envelope and fan-out requests,
+    errors included, answered as the reference's ``handle_pool`` answers
+    them (latency aside)."""
+    from repro.service import SessionPool as RPool
+    from repro_torch.service import SessionPool
+    ap = argparse.ArgumentParser()
+    r_args.add_policy_options(ap)
+    ra = ap.parse_known_args(ARGV)[0]
+    ap = argparse.ArgumentParser()
+    t_args.add_policy_options(ap)
+    ta = ap.parse_known_args(ARGV)[0]
+    ref = RPool.replicate(
+        RScheduler(r_args.build_policy(ra), warm_start=True), 4,
+        r_npb(R_SYSTEMS), capacity=16, checkpoint_dir=str(tmp_path / "r"),
+        decision_log=str(tmp_path / "r.jsonl"))
+    port = SessionPool.replicate(
+        Scheduler(t_args.build_policy(ta), warm_start=True, device="cpu"),
+        4, make_npb_workload(JSCC_SYSTEMS), capacity=16,
+        checkpoint_dir=str(tmp_path / "t"),
+        decision_log=str(tmp_path / "t.jsonl"))
+    reqs = ([_psub(i, j) for j in (0, 1) for i in range(4)]
+            + [{"op": "drive", "until": 45.0, "session": 2},
+               {"op": "drive", "until": 60.0},
+               {"op": "checkpoint"}, {"op": "checkpoint", "session": 1},
+               {"op": "whatif", "session": 3, "prog": "IS"},
+               {"op": "whatif", "prog": 2, "arrival": 900.0},
+               {"op": "submit", "session": 7, "prog": "BT"},
+               {"op": "submit", "session": 0, "prog": "nope"},
+               {"op": "bogus"}]
+            + [_psub(i, j) for j in (2, 3) for i in range(4)]
+            + [{"op": "restore", "session": 0}, _psub(0, 2), _psub(0, 3),
+               {"op": "drain", "session": 1}, {"op": "drain"},
+               {"op": "metrics"}, {"op": "metrics", "session": 2},
+               {"op": "result"}]
+            + [{"op": "result", "session": i} for i in range(4)])
+    for req in reqs:
+        resp = []
+        for handle, p in ((r_cli.handle_pool, ref), (t_cli.handle_pool,
+                                                      port)):
+            try:
+                r = handle(p, req)
+            except Exception as e:          # as main() reports it
+                r = {"ok": False, "error": str(e)}
+            resp.append(json.loads(json.dumps(r)))
+        _same(resp[0], resp[1], f"{req}")
+    ref.close()
+    port.close()
+    logs = [[json.loads(line) for line in (tmp_path / f).read_text()
+             .splitlines()] for f in ("r.jsonl", "t.jsonl")]
+    _same(*logs)
+    assert {(r["session"], r["job"]) for r in logs[1]} >= {
+        (i, j) for i in range(4) for j in range(4)}
+
+
+@pytest.mark.slow
+def test_pool_kill_and_restore_per_session(tmp_path):
+    """Four sessions over one loop, checkpointed mid-stream into
+    per-session namespaces, killed, ``--restore``d in a new process and
+    finished: per-session results equal an uninterrupted pool's, and the
+    decision logs of the two processes together carry every decision of
+    the uninterrupted pool's, each with its session."""
+    ck = ["--checkpoint-dir", str(tmp_path / "ck")]
+    head = [_psub(i, j) for j in (0, 1) for i in range(4)]
+    tail = [_psub(i, j) for j in (2, 3) for i in range(4)]
+    finish = ([{"op": "drain"}]
+              + [{"op": "result", "session": i} for i in range(4)]
+              + [{"op": "metrics"}])
+    logs = [str(tmp_path / f"{n}.jsonl") for n in ("a", "b", "solo")]
+
+    first = run_cli(head + [{"op": "drive", "until": 60.0},
+                            {"op": "checkpoint"}], *POOL, *ck,
+                    "--decision-log", logs[0])
+    assert all(r["ok"] for r in first)
+    assert first[-1]["steps"] == [0, 0, 0, 0]
+    assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == \
+        ["s000", "s001", "s002", "s003"]
+
+    second = run_cli(tail + finish, *POOL, *ck, "--restore",
+                     "--decision-log", logs[1])
+    assert all(r["ok"] for r in second)
+    banner = second[0]
+    assert banner["resumed"] and banner["sessions"] == 4
+    assert banner["n_submitted"] == [2, 2, 2, 2]
+
+    solo = run_cli(head + tail + finish, *POOL, "--decision-log", logs[2])
+    assert solo[-5:-1] == second[-5:-1]          # 4 per-session results
+    for i in range(4):
+        m = second[-1]["metrics"][str(i)]
+        assert m["n_submitted"] == 4 and m["n_finished"] == 4
+        assert m["queue_depth"] == 0
+    recs = [[json.loads(line) for line in open(f)] for f in logs]
+    key = lambda r: (r["session"], r["job"])  # noqa: E731
+    assert sorted(recs[0] + recs[1], key=key) == sorted(recs[2], key=key)
+    assert len(recs[2]) == 16
