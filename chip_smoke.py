@@ -32,20 +32,25 @@ Phases, each printing one JSON line:
                the serving path's shape (q [4, 4096, 32, 64], k/v
                [4, 4096, 4, 64], causal, bf16 and f32), the reference's
                test shapes (causal and not, sk != sq, MQA, head dims
-               32/64/128/256, f32 and bf16) and strided views (fused QKV,
-               head-major, f32 and bf16); the route each case took (bf16
-               at head dims 64 and 128: the tensor-core kernel, else the
-               f32-core one); kernel / host / device / plain /
+               32/64/96/128/256, f32 and bf16) and strided views (fused
+               QKV, head-major, f32 and bf16); the route each case took
+               (bf16 at head dims 64, 96 and 128: the tensor-core kernel,
+               else the f32-core one); kernel / host / device / plain /
                ``F.scaled_dot_product_attention`` times, the bound and the
-               tensor-core route's issued-operation floor, and one b = 1,
-               s = 32,768 call with its last rows checked
+               tensor-core route's issued-operation floor; head dim 96 at
+               phi-3-vision's path shape (q [4, 4096, 32, 96], causal,
+               bf16 and f32) with its times, bound and SDPA; and one
+               b = 1, s = 32,768 call with its last rows checked
   kernel_ssd   the SSD chunk-scan kernel against its plain version: the
                reference's test shapes (atol 2e-4, f32 and bf16), its
                chunk-invariance case (16 vs 64), the mamba2-780m path shape
                (x [4, 4096, 48, 64], B/C [4, 4096, 1, 128], chunk 256,
                bf16 and f32, as strided model-layout views; within 2e-4 +
                1e-4 max |plain|, and bit-equal to its run on contiguous
-               copies) and one b = 1, l = 32,768 call; the route (bf16:
+               copies), the jamba-v0.1-52b path shape (x [2, 4096, 128,
+               64], B/C [2, 4096, 1, 16], chunk 256, bf16, the same band;
+               device time and bound) and one b = 1, l = 32,768 call; the
+               route (bf16:
                four tensor-core launches, f32: three f32-core ones);
                kernel / host / device / per-launch device / plain times,
                the bound and the tensor-core route's issued-operation
@@ -90,7 +95,11 @@ Phases, each printing one JSON line:
                jobs/s, launches and device µs per step by kernel, idle
                share; (e) conservative's mean wait below EASY's on the
                reference ablation's two streams; (f) the DVFS cap x
-               freq_weight x K lattice: binding caps hold, tier counts
+               freq_weight x K lattice: binding caps hold, tier counts.
+               The twins of (a) and (d), (e) and (f) report no times and
+               run in a child process beside ``cross_device`` (the
+               ``event`` child); their checks run before the service
+               phase's first live step
   campaign_scale  campaign scale: (a) each core chunked against its
                monolithic run, bit for bit on every field: FCFS on the
                campaign phase's own 10,000-job kernel run at chunk 4,093;
@@ -200,13 +209,50 @@ Phases, each printing one JSON line:
                1,024-token prefill launches it 0 times;
                ``launch.serve.main`` at its defaults (batch 4, 32 tokens,
                max-seq 128) launches no kernel; tokens/s, ms per decode
-               step, the decode loop's device idle share, peak memory
+               step, the decode loop's device idle share (8 steps, a
+               trace of the device alone), peak memory
   serve_ssm    the same for mamba2-780m at full width (48 x 1536, bf16,
                780,148,992 seeded parameters): the 4 x 4,096 prefill
                calls the SSD scan kernel once per layer (bf16: the
                tensor-core route, four CUDA launches per call; f32: the
                f32-core one, three) and agrees with ``force="torch"``;
                decode runs no kernel
+  serve_moe    moonshot-v1-16b-a3b at full width and depth (48 x 2048, 64
+               experts top-6, 28,057,995,264 seeded bf16 parameters): the
+               2 x 4,096 prefill launches flash 48 times (tensor-core
+               route) and agrees with ``force="torch"`` within the band of
+               ``FAMILY_BANDS``, beside its floor (the plain prefill at
+               flash block 256), with the routing flips between the two
+               runs and the entries dropped at capacity per layer; a
+               31-step greedy decode launches nothing; the same prefill in
+               f32 at 4 layers within 1e-3; ``serve.main`` at its
+               defaults after the phase's weights are freed.  Then
+               llama4-scout-17b-a16e at full width, depth cut to 4 (16
+               experts top-1, 10,374,067,200 parameters): the prefill
+               launches flash 4 times, the same checks, the greedy decode
+               on the depth-cut config
+  serve_hybrid jamba-v0.1-52b at full width, one 8-layer group
+               (13,267,656,416 parameters): the 2 x 4,096 prefill calls
+               the SSD scan 7 times and flash once (tensor-core routes),
+               agrees with ``force="torch"`` beside its floor (half the
+               SSD chunk), routing flips and drops; 31 greedy steps over
+               the mixed cache (1 K/V layer, 7 conv/state) launch nothing;
+               f32 at the same group (f32-core routes, within 1e-3); a
+               teacher-forced decode of the first 64 tokens equals the
+               prefill's last logits within 1e-3 (f32, capacity_factor 8,
+               SSD chunk 64)
+  serve_encdec whisper-medium at full width and depth (24 + 24 layers of
+               1024): frames [4, 1500, 1024] and tokens [4, 2048]; flash
+               24 times (the decoder's causal self-attention), the encoder
+               and cross-attention on ``plain_attention``, 0 launches for
+               a 1,024-token decoder; bf16 and f32 against
+               ``force="torch"``; 31 greedy steps against memory filled
+               from ``encode``; ``serve.main`` (zero memory, as the
+               reference's launcher); teacher-forced decode = prefill
+  serve_vlm    phi-3-vision-4.2b at full width and depth (32 x 3072, head
+               dim 96): patches [4, 576, 3072] + tokens [4, 3520]; flash
+               32 times at head dim 96 (the route reported), bf16 and f32
+               against ``force="torch"``; ``serve.main``
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -356,16 +402,15 @@ def _device_us_per_call(fn, names, iters: int = 200):
     return sum(by_kernel.values()) if by_kernel else None
 
 
-def _device_busy_us(fn, count=False, cpu=True):
+def _device_busy_us(fn, count=False):
     """Device time (µs) of every CUDA kernel, memset and copy one call of
-    ``fn`` makes, from a profiler trace (None if the trace is empty);
-    with ``count``, also the number of those device operations.  Without
-    ``cpu`` the trace records the device alone: the same device
-    operations, a third of the events to read back."""
+    ``fn`` makes, from a profiler trace of the device alone (None if the
+    trace is empty); with ``count``, also the number of those device
+    operations.  Host events would give the same device operations with
+    three times the events to read back, at about 0.3 ms an event."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU] * cpu
-                 + [ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     times = [e.device_time_total for e in prof.events()
@@ -814,7 +859,10 @@ FLASH_PATH = (4, 4096, 4096, 32, 4, 64)
 FLASH_CASES = ((2, 256, 256, 8, 2, 64), (1, 256, 256, 4, 4, 128),
                (2, 128, 384, 4, 1, 64), (1, 512, 512, 2, 2, 32),
                (1, 256, 256, 4, 2, 64), (1, 256, 256, 4, 4, 256),
-               (1, 100, 70, 4, 2, 64))
+               (1, 100, 70, 4, 2, 64), (1, 256, 256, 4, 4, 96),
+               (2, 128, 384, 4, 2, 96), (1, 100, 70, 2, 1, 96))
+#: phi-3-vision's prefill of 576 patches + 3,520 tokens: head dim 96
+FLASH_VLM = (4, 4096, 4096, 32, 32, 96)
 FLASH_ATOL = {"float32": 3e-5, "bfloat16": 3e-2}
 
 
@@ -855,14 +903,15 @@ def _flash_issued(shape, causal):
     """Operations the tensor-core route issues: for each 64-row tile of
     (position, query head) rows of one (batch, KV head), 64-key tiles up
     to the tile's last position (causal) or to sk, each pair costing
-    2 hd (S = Q K^T) + 4 hd (P V with P split in two) operations."""
+    2 hd (S = Q K^T) + 4 hd' (P V with P split in two, at hd' = 128 for
+    head dim 96, whose V tile is padded) operations."""
     b, sq, sk, h, kv, hd = shape
     rep, rows = h // kv, sq * h // kv
     keys = 0
     for row0 in range(0, rows, 64):
         end = min(sk, (min(row0 + 64, rows) - 1) // rep + 1) if causal else sk
         keys += -(-end // 64) * 64
-    return 6 * hd * 64 * keys * b * kv
+    return (2 * hd + 4 * (128 if hd == 96 else hd)) * 64 * keys * b * kv
 
 
 def _sdpa(q, k, v, causal):
@@ -927,6 +976,11 @@ def phase_kernel_flash() -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (True, False):
                 compare(shape, dtype, causal, 128)
+                want = ("tensor-core" if dtype == torch.bfloat16
+                        and shape[-1] in (64, 96, 128) else "f32-core")
+                check(flash_attention_cuda.last_route == want,
+                      f"{shape} {dtype} took the "
+                      f"{flash_attention_cuda.last_route} route, not {want}")
     # q, k, v read in place through their strides: views of one fused
     # [b, s, h + 2 kv, hd] projection, and head-major [b, h, s, hd]
     # tensors seen as [b, s, h, hd]; equal bit for bit to the kernel on
@@ -984,6 +1038,9 @@ def phase_kernel_flash() -> dict:
     res.update(_bound(nbytes, ops, BF16_TENSOR_OPS_PER_S))
     del q, k, v, out
 
+    # head dim 96 at phi-3-vision's prefill shape, and its f32 route
+    res["hd96"] = _flash_hd96(compare, gen)
+
     # one sequence of the reference's prefill_32k shape
     long = (1, 32768, 32768, 32, 4, 64)
     q, k, v = _flash_inputs(long, torch.bfloat16, gen)
@@ -1011,9 +1068,52 @@ def phase_kernel_flash() -> dict:
     return res
 
 
+def _flash_hd96(compare, gen) -> dict:
+    """Head dim 96 at phi-3-vision's path shape (``FLASH_VLM``, bf16,
+    causal): the tensor-core route within the bands, its times, bound and
+    ``F.scaled_dot_product_attention``; the same shape in f32 on the
+    f32-core route."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_cuda)
+    q, k, v, _, _ = compare(FLASH_VLM, torch.float32, True, 512)
+    check(flash_attention_cuda.last_route == "f32-core",
+          "f32 hd 96 inputs take the f32-core kernel")
+    f32_fn = lambda: flash_attention_cuda(q, k, v, causal=True)  # noqa: E731
+    f32_us = cuda_ms(f32_fn, 3, 1) * 1e3
+    nb32, ops32 = _attention_work(FLASH_VLM, True, 4)
+    del q, k, v
+    q, k, v, out, err = compare(FLASH_VLM, torch.bfloat16, True, 512)
+    route = flash_attention_cuda.last_route
+    check(route == "tensor-core", f"bf16 hd 96 took the {route} route")
+    fn = lambda: flash_attention_cuda(q, k, v, causal=True)  # noqa: E731
+    lib = _sdpa(q, k, v, True)
+    lib_err = float((lib().transpose(1, 2).float() - out.float()).abs().max())
+    check(lib_err <= FLASH_ATOL["bfloat16"],
+          f"SDPA at hd 96 computes the same attention ({lib_err})")
+    nbytes, ops = _attention_work(FLASH_VLM, True, 2)
+    res = dict(shape=list(FLASH_VLM), dtype="bfloat16", causal=True,
+               route=route, max_abs_err=err,
+               kernel_us=cuda_ms(fn, 10) * 1e3,
+               kernel_device_us=_device_us_per_call(fn, ("flash_fwd",), 5),
+               plain_us=cuda_ms(lambda: flash_attention(
+                   q, k, v, causal=True, block_q=512, block_k=512,
+                   force="torch"), 2, warmup=1) * 1e3,
+               library_us=cuda_ms(lib, 10) * 1e3, library_max_abs_diff=lib_err,
+               issued_floor_ms=_flash_issued(FLASH_VLM, True)
+               / BF16_TENSOR_OPS_PER_S * 1e3,
+               f32_kernel_us=f32_us,
+               f32_bound_ms=_bound(nb32, ops32, VECTOR_OPS_PER_S)["bound_ms"])
+    res.update(_bound(nbytes, ops, BF16_TENSOR_OPS_PER_S))
+    return res
+
+
 #: the mamba2-780m prefill's scan: b, l, h, g, p, n, chunk (x [4, 4096,
 #: 48, 64] seen as 192 head rows, B/C [4, 4096, 1, 128], 16 chunks)
 SSD_PATH = (4, 4096, 48, 1, 64, 128, 256)
+#: the jamba-v0.1-52b prefill's scan (x [2, 4096, 128, 64], B/C
+#: [2, 4096, 1, 16], 16 chunks)
+SSD_JAMBA = (2, 4096, 128, 1, 64, 16, 256)
 #: the reference's kernel test shapes (tests/test_kernels.py): bh, l, p,
 #: n, rep, chunk
 SSD_CASES = ((4, 128, 16, 8, 2, 32), (2, 64, 8, 16, 1, 16),
@@ -1183,6 +1283,31 @@ def phase_kernel_ssd() -> dict:
                 if dtype == torch.bfloat16 else VECTOR_OPS_PER_S))
         del x, dt, dA, B, C, y, s
 
+    # Jamba's shape: state 16 (zero-padded to the 64 x 64 tiles), 128
+    # heads of 64, bf16 model-layout views
+    x, dt, dA, B, C = _ssd_inputs(SSD_JAMBA, torch.bfloat16, gen)
+    fn = lambda: ssd_scan_cuda(x, dt, dA, B, C, chunk=256)  # noqa: E731
+    y, s = fn()
+    jamba_route = ssd_scan_cuda.last_route
+    torch.cuda.synchronize()
+    check(jamba_route == "tensor-core", f"bf16 Jamba inputs took the "
+          f"{jamba_route} route")
+    plain = lambda: ssd_chunked_dA(x, dt, dA, B, C, 256)  # noqa: E731
+    py, ps = plain()
+    jamba = _ssd_check("Jamba bf16", y, s, py, ps, SSD_REL)
+    del py, ps
+    nbytes, ops = _ssd_work(SSD_JAMBA, 2)
+    launches = _device_us_by_kernel(fn, ("ssd_",), 10)
+    jamba.update(shape=list(SSD_JAMBA), route=jamba_route,
+                 kernel_us=cuda_ms(fn, 20) * 1e3,
+                 kernel_device_us=sum(launches.values()) if launches else None,
+                 launch_device_us=launches,
+                 plain_us=cuda_ms(plain, 3, warmup=1) * 1e3,
+                 issued_floor_ms=(_ssd_issued(SSD_JAMBA)
+                                  / BF16_TENSOR_OPS_PER_S * 1e3),
+                 **_bound(nbytes, ops, BF16_TENSOR_OPS_PER_S))
+    del x, dt, dA, B, C, y, s
+
     # one sequence of the reference's prefill_32k length
     long = (1, 32768, 48, 1, 64, 128, 256)
     x, dt, dA, B, C = _ssd_inputs(long, torch.bfloat16, gen)
@@ -1206,7 +1331,7 @@ def phase_kernel_ssd() -> dict:
         B=[SSD_PATH[0], SSD_PATH[1], SSD_PATH[3], SSD_PATH[5]],
         chunk=SSD_PATH[6], dtype="bfloat16", layout="model-layout views"),
         library_us=None, library=None, f32=res["float32"], long=long_row,
-        cases=rows)
+        jamba=jamba, cases=rows)
     emit("kernel", name="ssd_scan", **out)
     return out
 
@@ -1308,8 +1433,7 @@ def _launches_per_step(w_small, steps=None, **kw):
     steps = steps or len(w_small.prog)
     _campaign(w_small, **kw)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _campaign(w_small, **kw)
         torch.cuda.synchronize()
     kernels = [e for e in prof.events()
@@ -1760,15 +1884,12 @@ def phase_event_campaign(counters: dict) -> dict:
     """The event-granular cores on the card at the SCC's full width (the
     four JSCC systems, maxN 136, window 16 for the backfilling queues):
     FCFS with failure re-queue, FCFS with stragglers against the arrival
-    core, event-driven EASY, the example's capped conservative campaign,
-    the reference ablation's queue comparison and the DVFS lattice."""
+    core, event-driven EASY, the example's capped conservative campaign;
+    the twins of (a) and (d), the reference ablation's queue comparison
+    and the DVFS lattice run in the ``event`` child and are checked by
+    ``_event_finish``."""
     import numpy as np
     import torch
-    from repro_torch.core import JSCC_SYSTEMS, Scheduler, make_npb_workload
-    from repro_torch.core.policy import make_policy
-    from repro_torch.data import (load_swf, make_stream_workload, swf_lines,
-                                  synthetic_swf_arrays, workload_from_trace)
-    from repro_torch.kernels.kth_free import kth_free_cuda
     w = _event_stream()
     J = EVENT_J
     # the sync detector's first use in a process counts one more
@@ -1788,12 +1909,6 @@ def phase_event_campaign(counters: dict) -> dict:
     a, stats = _event_run_stats("fcfs_retries", w, _policy_of(EVENT_FCFS),
                                 True, 1, counters, 25, **kw)
     check(stats["steps"] == 7 * J + 4, "retries step count")
-    # its twins on the same stream: the sort placer, totals_only
-    kth_free_cuda.launches = 0
-    srt = _campaign(w, placer="sort", **kw)
-    check(kth_free_cuda.launches == 0, "placer='sort' launched the kernel")
-    _same(a, srt, EVENT_FIELDS, (), "fcfs_retries kernel/sort")
-    _totals_agree(a, _campaign(w, totals_only=True, **kw), "fcfs_retries")
     put("fcfs_retries", stats)
 
     # (b) FCFS on the event clock with stragglers only: the reference's
@@ -1826,42 +1941,74 @@ def phase_event_campaign(counters: dict) -> dict:
         check(peak[i] <= cap * (1 + 1e-5), f"peak {peak[i]} over cap {cap}")
     check(bool((np.diff(mk) <= 0).all()),
           f"makespan must not fall as the cap tightens: {mk.tolist()}")
-    _totals_agree(d, _campaign(wc, totals_only=True, **kw), "cons_capped")
-    unc = _campaign(wc, policy=make_policy("conservative", k=0.10),
-                    faults=None, seeds=0, queue=CONS_QUEUE)
-    for f in EVENT_FIELDS:
-        x, y = getattr(d, f), getattr(unc, f)
-        check(torch.equal(x[-1], y), f"inf-cap lane != uncapped run on {f}")
     put("cons_capped", dict(
         stats, caps=list(CAPS), peak_power=peak.tolist(),
         makespan=mk.tolist(), capped_delay=d.capped_delay.cpu().tolist(),
         idle_energy=d.idle_energy.cpu().tolist(),
         n_backfilled=d.n_backfilled.cpu().tolist()))
 
-    # (e) the reference ablation's queue comparison: conservative waits
-    # less than EASY on both of its streams
+    # (a)'s and (d)'s twins, (e) and (f): no times, so they run in the
+    # ``event`` child beside ``cross_device``; the checks wait for it
+    EVENT_HELD.update(a=a, d=d, put=put)
+    return out
+
+
+def event_part(tmp: str) -> None:
+    """``event_campaign``'s untimed runs on the card, saved to
+    ``tmp/event.pt``: (a)'s sort-placer and ``totals_only`` twins (and the
+    kernel's launches in the first), (d)'s ``totals_only`` and uncapped
+    twins (tensor fields, on the CPU), (e) the reference ablation's mean
+    waits and (f) the DVFS lattice.  Runs in a process of its own
+    (``KID_GROUPS``)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import JSCC_SYSTEMS, Scheduler, make_npb_workload
+    from repro_torch.core.policy import make_policy
+    from repro_torch.data import (load_swf, make_stream_workload, swf_lines,
+                                  synthetic_swf_arrays, workload_from_trace)
+    from repro_torch.kernels.kth_free import kth_free_cuda
+
+    def fields(res):
+        """The result's tensor fields on the CPU (None where absent)."""
+        out = {}
+        for f in dataclasses.fields(res):
+            v = getattr(res, f.name)
+            if v is None or torch.is_tensor(v):
+                out[f.name] = None if v is None else v.cpu()
+        return out
+    out = {}
+    w = _event_stream()
+    kw = dict(engine="events", queue=EVENT_FCFS)
+    kth_free_cuda.launches = 0
+    out["fcfs_retries.sort"] = fields(_campaign(w, placer="sort", **kw))
+    out["sort_launches"] = kth_free_cuda.launches
+    out["fcfs_retries.totals_only"] = fields(_campaign(w, totals_only=True,
+                                                       **kw))
+    wc = _cap_stream()
+    out["cons_capped.totals_only"] = fields(_campaign(
+        wc, policy=_cap_policy(), faults=None, seeds=0, totals_only=True))
+    out["cons_capped.uncapped"] = fields(_campaign(
+        wc, policy=make_policy("conservative", k=0.10), faults=None,
+        seeds=0, queue=CONS_QUEUE))
+
+    # (e) the reference ablation's queue comparison
     streams = {
         "swf": workload_from_trace(load_swf(swf_lines(
             *synthetic_swf_arrays(250, 11))), JSCC_SYSTEMS),
         "diurnal": make_stream_workload(JSCC_SYSTEMS, 300,
                                         arrival="diurnal", rate=0.8, seed=3,
                                         pred_noise=0.05)}
-    ablation = {}
-    for tag, ws in streams.items():
-        waits = {}
-        for queue in ("fcfs", "easy_backfill:window=16",
-                      "conservative:window=16"):
-            r = Scheduler(make_policy("paper", k=0.10), warm_start=True,
-                          queue=queue).run(ws)
-            waits[queue.split(":")[0]] = float(r.mean_wait)
-        check(waits["conservative"] < waits["easy_backfill"],
-              f"{tag}: conservative's mean wait is not below EASY's "
-              f"{waits}")
-        ablation[tag] = waits
-    put("ablation_mean_wait", ablation)
+    out["ablation"] = {
+        tag: {queue.split(":")[0]: float(Scheduler(
+            make_policy("paper", k=0.10), warm_start=True,
+            queue=queue).run(ws).mean_wait)
+            for queue in ("fcfs", "easy_backfill:window=16",
+                          "conservative:window=16")}
+        for tag, ws in streams.items()}
 
     # (f) the DVFS Pareto lattice (``benchmarks/dvfs_pareto.py``): cap x
-    # freq_weight x K, every binding cap holds
+    # freq_weight x K
     wn = make_npb_workload(JSCC_SYSTEMS, repeats=4)
     scale = float(np.median(wn.C_true) / np.median(wn.T_true))
     caps, fws, ks = (x.ravel() for x in np.meshgrid(
@@ -1870,16 +2017,66 @@ def phase_event_campaign(counters: dict) -> dict:
         np.array([0.10, 0.50], np.float32), indexing="ij"))
     r = Scheduler(make_policy("dvfs_paper", k=ks, freq_weight=fws,
                               power_cap=caps), warm_start=True).run(wn)
-    pk = r.peak_power.cpu().numpy()
-    for i, cap in enumerate(caps):
+    out["dvfs"] = dict(caps=caps.tolist(), peak_power=r.peak_power.cpu(),
+                       total_energy=r.total_energy.cpu(),
+                       makespan=r.makespan.cpu(),
+                       tier_counts=r.tier_counts.cpu())
+    torch.save(out, os.path.join(tmp, "event.pt"))
+
+
+#: ``event_campaign``'s kernel runs (a) and (d) and its ``put``, held until
+#: the ``event`` child's twins are checked against them
+EVENT_HELD: dict = {}
+
+
+def _event_finish() -> None:
+    """Join the ``event`` child (starting it if no earlier phase did) and
+    run ``event_campaign``'s checks on its runs: (a)'s sort placer
+    launches nothing and equals the kernel run on every field,
+    ``totals_only`` keeps (a)'s and (d)'s totals, (d)'s uncapped lane
+    equals an uncapped run; (e) conservative's mean wait below EASY's on
+    both streams; (f) every binding DVFS cap holds.  Emits the (e) and (f)
+    lines."""
+    import types
+    import torch
+    if not EVENT_HELD:
+        return
+    _service_start(("event_campaign",))
+    try:
+        _service_join("event")
+        t = torch.load(os.path.join(_kid_dir("event"), "event.pt"))
+    finally:
+        _service_stop(KID_GROUPS["event_campaign"])
+    a, d, put = EVENT_HELD.pop("a"), EVENT_HELD.pop("d"), EVENT_HELD.pop("put")
+
+    def res(name):
+        return types.SimpleNamespace(**{
+            f: None if v is None else v.to(a.makespan.device)
+            for f, v in t[name].items()})
+    check(t["sort_launches"] == 0, "placer='sort' launched the kernel")
+    _same(a, res("fcfs_retries.sort"), EVENT_FIELDS, (),
+          "fcfs_retries kernel/sort")
+    _totals_agree(a, res("fcfs_retries.totals_only"), "fcfs_retries")
+    _totals_agree(d, res("cons_capped.totals_only"), "cons_capped")
+    unc = res("cons_capped.uncapped")
+    for f in EVENT_FIELDS:
+        check(torch.equal(getattr(d, f)[-1], getattr(unc, f)),
+              f"inf-cap lane != uncapped run on {f}")
+    for tag, waits in t["ablation"].items():
+        check(waits["conservative"] < waits["easy_backfill"],
+              f"{tag}: conservative's mean wait is not below EASY's "
+              f"{waits}")
+    put("ablation_mean_wait", t["ablation"])
+    dv = t["dvfs"]
+    pk = dv["peak_power"].numpy()
+    for i, cap in enumerate(dv["caps"]):
         if cap < 1e29:
             check(pk[i] <= cap * (1 + 1e-5), f"DVFS peak {pk[i]} > {cap}")
     put("dvfs_lattice", dict(
-        points=len(caps), peak_power=pk.tolist(),
-        total_energy=r.total_energy.cpu().tolist(),
-        makespan=r.makespan.cpu().tolist(),
-        tier_counts=r.tier_counts.cpu().tolist()))
-    return out
+        points=len(dv["caps"]), peak_power=pk.tolist(),
+        total_energy=dv["total_energy"].tolist(),
+        makespan=dv["makespan"].tolist(),
+        tier_counts=dv["tier_counts"].tolist()))
 
 
 #: campaign scale (a): each core's chunked run against its monolithic
@@ -2421,7 +2618,8 @@ def service_batch_part(tmp: str) -> None:
 SERVICE_KIDS: dict = {}
 #: the children each service phase reads
 KID_GROUPS = {"service": ("batch", "cli"), "service_pool": ("pool",
-                                                             "pool_cli")}
+                                                             "pool_cli"),
+              "event_campaign": ("event",)}
 
 
 def _kid_command(name: str, tmp: str) -> tuple:
@@ -2434,7 +2632,8 @@ def _kid_command(name: str, tmp: str) -> tuple:
                  "60000", "--checkpoint-dir", os.path.join(tmp, "ck")],
                 "\n".join(json.dumps(r) for r in SERVICE_REQUESTS))
     return part({"batch": "service_batch_part", "pool": "service_pool_part",
-                 "pool_cli": "service_pool_cli_part"}[name]), ""
+                 "pool_cli": "service_pool_cli_part",
+                 "event": "event_part"}[name]), ""
 
 
 def _service_start(phases=tuple(KID_GROUPS)) -> None:
@@ -2603,6 +2802,7 @@ def _service_phase(counters: dict, tmp: str) -> dict:
     for name in KID_GROUPS["service_pool"]:
         if name in SERVICE_KIDS:
             _service_join(name)
+    _event_finish()
     lat, out = [], {}
     for name, w, queue, faults, calls, cap in runs:
         d, stats = _service_session(
@@ -3067,7 +3267,7 @@ def _pool_probe(n, w):
     steps = pool.n_pool_steps - steps_feed
     s0 = pool.n_pool_steps
     busy_us, ops = _device_busy_us(lambda: _pool_feed(
-        pool, w, progs, hi, 2 * hi - lo), count=True, cpu=False)
+        pool, w, progs, hi, 2 * hi - lo), count=True)
     prof_steps = pool.n_pool_steps - s0
     pool.close()
     return dict(
@@ -3435,16 +3635,45 @@ SERVE_CELLS = {
 }
 #: parameters of the full-size configs (the reference's ``param_specs``)
 SERVE_PARAMS = {"tinyllama-1.1b": 1_100_048_384, "mamba2-780m": 780_148_992}
+#: decode steps of the serving cells' idle-share probe (31 until PR 23;
+#: ``serve.main`` times its own 31)
+SERVE_IDLE_STEPS = 8
 
 
-def _decode_loop_stats(api, params, logits, steps):
+def _serve_setup():
+    """The serving phases' numerics (no TF32, no reduced-precision bf16
+    reductions), a fresh peak-memory count, and ``(wrappers, counted)``:
+    ``counted(fn)`` sets every kernel count to 0 just before ``fn()``,
+    synchronises, and returns (its result, its seconds, the counts just
+    after)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = _wrappers()
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {
+            n: w.launches for n, w in wrappers.items()}
+    return wrappers, counted
+
+
+def _decode_loop_stats(api, params, logits, steps, sync_steps=(4, 8)):
     """Device idle share of ``steps`` greedy decode steps (1 - device busy
     time from the profiler / wall of the same loop unprofiled), device
-    operations per step, and the host synchronisations of the loop at two
-    lengths (which must not grow with the steps)."""
+    operations per step, and the host synchronisations of the loop at the
+    two lengths ``sync_steps`` (which must not grow with the steps)."""
     import torch
     from repro_torch.launch.serve import greedy_decode
-    cache = api.init_decode_cache(logits.shape[0], steps + 1)
+    cache = api.init_decode_cache(logits.shape[0],
+                                  max(steps, *sync_steps) + 1)
 
     def run(n=steps):
         return greedy_decode(api, params, cache, logits, 0, n)
@@ -3456,8 +3685,8 @@ def _decode_loop_stats(api, params, logits, steps):
     wall_us = (time.perf_counter() - t0) * 1e6
     busy_us, n_ops = _device_busy_us(run, count=True)
     _sync_count(lambda: run(2))       # the detector's first call (one sync)
-    syncs = {n: _sync_count(lambda: run(n)) for n in (4, 8)}
-    check(syncs[4] == syncs[8],
+    syncs = {n: _sync_count(lambda: run(n)) for n in sync_steps}
+    check(len(set(syncs.values())) == 1,
           f"host syncs change with the decode steps: {syncs}")
     return dict(decode_wall_us=wall_us, decode_device_busy_us=busy_us,
                 decode_device_idle_share=(None if busy_us is None
@@ -3490,17 +3719,21 @@ def _prefill_pair(api, params, batch, counted, wrappers, kernel, band):
     return logits, plain, t_kernel, t_plain, launches, diff
 
 
+def _half_chunk(api):
+    """The same model at half its SSD chunk (the floor of SSD prefills)."""
+    import dataclasses
+    from repro_torch.models import build_model
+    cfg = api.cfg
+    return build_model(cfg.with_overrides(ssm=dataclasses.replace(
+        cfg.ssm, chunk=cfg.ssm.chunk // 2)))
+
+
 def _chunk_floor(api, params, batch, plain):
     """max |plain prefill logits - the plain prefill at half the SSD
     chunk|: the same sums rounded in another order, the floor the kernel's
     difference is read against."""
-    import dataclasses
-    from repro_torch.models import build_model
-    cfg = api.cfg
-    half = build_model(cfg.with_overrides(ssm=dataclasses.replace(
-        cfg.ssm, chunk=cfg.ssm.chunk // 2)))
-    return float((half.prefill(params, batch, force="torch") - plain)
-                 .abs().max())
+    return float((_half_chunk(api).prefill(params, batch, force="torch")
+                  - plain).abs().max())
 
 
 def phase_serve(counters: dict, phase: str) -> None:
@@ -3512,21 +3745,7 @@ def phase_serve(counters: dict, phase: str) -> None:
     from repro_torch.launch import serve
     from repro_torch.models import build_model
     arch, kernel, band = SERVE_CELLS[phase]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    torch.cuda.reset_peak_memory_stats()
-    wrappers = _wrappers()
-
-    def counted(fn):
-        torch.cuda.synchronize()
-        for w in wrappers.values():
-            w.launches = 0
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0, {
-            n: w.launches for n, w in wrappers.items()}
+    wrappers, counted = _serve_setup()
 
     cfg = get_config(arch)
     api = build_model(cfg)
@@ -3543,7 +3762,7 @@ def phase_serve(counters: dict, phase: str) -> None:
     api.prefill(params, batch)                            # warm up
     logits, plain, t_prefill, t_plain, launches, diff = _prefill_pair(
         api, params, batch, counted, wrappers, kernel, band)
-    counters[kernel] = launches[kernel]
+    _count(counters, kernel, phase, launches[kernel])
     route = wrappers[kernel].last_route
     check(route == "tensor-core", f"the bf16 prefill took the {route} "
           f"route of {kernel}")
@@ -3566,11 +3785,13 @@ def phase_serve(counters: dict, phase: str) -> None:
         extra = dict(plain_half_chunk_logits_max_abs_diff=_chunk_floor(
             api, params, batch, plain))
 
-    res, t_main, launches = counted(lambda: serve.main(["--arch", arch]))
-    check(not any(launches.values()), f"decode launched {launches}")
+    res, t_main, decode_launches = counted(
+        lambda: serve.main(["--arch", arch]))
+    check(not any(decode_launches.values()),
+          f"decode launched {decode_launches}")
     check(res["steps"] == 31 and bool(torch.isfinite(res["logits"]).all()),
           "serve.main decodes 31 timed steps with finite logits")
-    idle = _decode_loop_stats(api, params, logits, 31)
+    idle = _decode_loop_stats(api, params, logits, SERVE_IDLE_STEPS)
     peak = torch.cuda.max_memory_allocated()
 
     # the same prefill in f32: kernel and plain version within f32 noise
@@ -3590,7 +3811,7 @@ def phase_serve(counters: dict, phase: str) -> None:
          dtype=cfg.dtype, params=n_params, init_s=init_s,
          prefill_shape=list(tokens.shape), prefill_s=t_prefill,
          prefill_tokens_per_s=tokens.numel() / t_prefill,
-         prefill_kernel=kernel, prefill_launches=counters[kernel],
+         prefill_kernel=kernel, prefill_launches=launches[kernel],
          prefill_route=route, f32_prefill_route=route32,
          prefill_plain_s=t_plain,
          prefill_plain_tokens_per_s=tokens.numel() / t_plain,
@@ -3609,6 +3830,534 @@ def phase_serve(counters: dict, phase: str) -> None:
              torch.backends.cuda.matmul
              .allow_bf16_reduced_precision_reduction),
          nvidia_smi=nvidia_smi())
+
+
+#: the rest of the serving stack: phase -> [(arch, layers (depth cut, or
+#: None for the published depth), its parameters by the reference's
+#: ``param_specs``)]
+FAMILY_CELLS = {
+    "serve_moe": [("moonshot-v1-16b-a3b", None, 28_057_995_264),
+                  ("llama4-scout-17b-a16e", 4, 10_374_067_200)],
+    "serve_hybrid": [("jamba-v0.1-52b", 8, 13_267_656_416)],
+    "serve_encdec": [("whisper-medium", None, 793_338_880)],
+    "serve_vlm": [("phi-3-vision-4.2b", None, 3_821_079_552)],
+}
+#: |logits(kernel prefill) - logits(force="torch" prefill)| bands by arch
+#: and dtype, set from the floor each phase measures and prints: the
+#: plain prefill against itself at flash block 256 (Jamba: at half the
+#: SSD chunk), the same sums rounded in another order -- and, for MoE,
+#: routed otherwise where two experts' probabilities differ in the last
+#: bits.  bf16: three times the floor an H100 showed, rounded up
+#: (moonshot 0.0953 with 36,974 routing flips, llama4-scout 0.0594,
+#: Jamba 0.0984, Whisper 0.0408, phi-3-vision 0.0680; the kernel runs
+#: differed by 1.20 / 1.61 / 0.72 / 0.98 / 1.00 x those); f32: 1e-3, as
+#: for the dense and SSM cells (1.8e-5 to 5.7e-5 seen).  PERF.md "Parity
+#: bands"
+FAMILY_BANDS = {
+    "moonshot-v1-16b-a3b": {"bfloat16": 0.3, "float32": 1e-3},
+    "llama4-scout-17b-a16e": {"bfloat16": 0.18, "float32": 1e-3},
+    "jamba-v0.1-52b": {"bfloat16": 0.3, "float32": 1e-3},
+    "whisper-medium": {"bfloat16": 0.13, "float32": 1e-3},
+    "phi-3-vision-4.2b": {"bfloat16": 0.21, "float32": 1e-3},
+}
+#: prompt of the decoder-only prefills: batch x tokens
+FAMILY_PROMPT = {"moonshot-v1-16b-a3b": (2, 4096),
+                 "llama4-scout-17b-a16e": (2, 4096),
+                 "jamba-v0.1-52b": (2, 4096),
+                 "whisper-medium": (4, 2048),
+                 "phi-3-vision-4.2b": (4, 4096 - 576)}
+#: decode-loop steps of the idle-share probe (``_decode_loop_stats``; its
+#: host syncs at 2 and 4 steps), by arch: reading back a trace costs about
+#: 0.3 ms an event, and a moonshot step has 7,167 device operations
+FAMILY_IDLE_STEPS = {"moonshot-v1-16b-a3b": 2}
+
+
+def _idle_probe(api, params, logits) -> dict:
+    """``_decode_loop_stats`` for the new serving cells, and its seconds."""
+    t0 = time.perf_counter()
+    row = _decode_loop_stats(api, params, logits,
+                             FAMILY_IDLE_STEPS.get(api.cfg.name, 4),
+                             sync_steps=(2, 4))
+    row["idle_probe_s"] = time.perf_counter() - t0
+    return row
+#: phi-3-vision's f32 prompt: 576 patches + 1,472 tokens (2,048
+#: positions, still the flash branch), cut from 4,096 for the time
+VLM_F32_TOKENS = 2048 - 576
+
+
+def _family_config(arch, layers, **kw):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.with_overrides(n_layers=layers)
+    return cfg.with_overrides(**kw) if kw else cfg
+
+
+def _free() -> None:
+    """Give the caching allocator's free blocks back after a ``del``."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _moe_routes():
+    """A context that records every MoE layer's top-k ids and kept mask
+    (sorted order) of the runs inside it, by patching
+    ``repro_torch.models.moe.route`` / ``dispatch``; yields the record."""
+    import contextlib
+    from repro_torch.models import moe
+
+    @contextlib.contextmanager
+    def ctx():
+        rec = {"ids": [], "keep": []}
+        real_route, real_dispatch = moe.route, moe.dispatch
+
+        def route(*a, **kw):
+            out = real_route(*a, **kw)
+            rec["ids"].append(out[1])
+            return out
+
+        def dispatch(*a, **kw):
+            out = real_dispatch(*a, **kw)
+            rec["keep"].append(out[1])
+            return out
+        moe.route, moe.dispatch = route, dispatch
+        try:
+            yield rec
+        finally:
+            moe.route, moe.dispatch = real_route, real_dispatch
+    return ctx()
+
+
+def _routing(a, b) -> dict:
+    """Routing flips between two runs' records: (layer, token) whose top-k
+    expert sets differ, per MoE layer; and the (token, slot) entries
+    dropped at capacity per MoE layer in run ``a``."""
+    flips = [int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+             for x, y in zip(a["ids"], b["ids"])]
+    return dict(routing_flips=sum(flips), routing_flips_by_layer=flips,
+                dropped_by_layer=[int((~k).sum()) for k in a["keep"]],
+                moe_layers=len(a["ids"]))
+
+
+def _flash_block(block):
+    """A context in which the flash dispatch's plain version runs at tiles
+    of ``block`` (the floor of the flash prefills)."""
+    import contextlib
+    from repro_torch.models import attention
+
+    @contextlib.contextmanager
+    def ctx():
+        real = attention.ops.flash_attention
+        attention.ops.flash_attention = lambda *a, **kw: real(
+            *a, **{**kw, "block_q": block, "block_k": block})
+        try:
+            yield
+        finally:
+            attention.ops.flash_attention = real
+    return ctx()
+
+
+def _family_prefill(api, params, batch, counted, wrappers, expect, routes,
+                    floor=None):
+    """The kernel prefill (launching exactly ``expect``, a kernel -> count
+    map, and nothing else), its ``force="torch"`` run (nothing launched)
+    and, if ``floor`` ('flash' or 'ssd'), the plain run at flash block 256
+    or half the SSD chunk: logits held to the arch's band, argmax equal
+    where the plain run's top-2 margin exceeds it, MoE routing flips and
+    drops.  Returns (kernel logits, the row)."""
+    import torch
+    cfg = api.cfg
+    band = FAMILY_BANDS[cfg.name][cfg.dtype]
+    with _moe_routes() as r_kernel:
+        logits, t_kernel, launches = counted(lambda: api.prefill(params,
+                                                                 batch))
+    check(launches == {**dict.fromkeys(wrappers, 0), **expect},
+          f"{cfg.name} {cfg.dtype} prefill launched {launches}, expected "
+          f"{expect}")
+    routes_taken = {n: wrappers[n].last_route for n in expect}
+    check(all(r == routes[n] for n, r in routes_taken.items()),
+          f"{cfg.name} {cfg.dtype} prefill routes {routes_taken}, expected "
+          f"{routes}")
+    with _moe_routes() as r_plain:
+        plain, t_plain, plain_launches = counted(
+            lambda: api.prefill(params, batch, force="torch"))
+    check(not any(plain_launches.values()),
+          f"force='torch' launched {plain_launches}")
+    b = batch["tokens"].shape[0]
+    check(logits.shape == (b, cfg.vocab_size) and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()), f"{cfg.name} logits")
+    diff = float((logits - plain).abs().max())
+    row = dict(prefill_s=t_kernel, prefill_plain_s=t_plain,
+               prefill_launches=expect, routes=routes_taken,
+               logits_max_abs_diff=diff, logit_band=band,
+               logits_abs_max=float(plain.abs().max()))
+    if floor is not None:
+        t0 = time.perf_counter()
+        with _moe_routes() as r_floor:
+            if floor == "flash":
+                with _flash_block(256):
+                    again = api.prefill(params, batch, force="torch")
+            else:
+                again = _half_chunk(api).prefill(params, batch,
+                                                 force="torch")
+        row["floor"] = ("plain at flash block 256" if floor == "flash"
+                        else "plain at half the SSD chunk")
+        row["floor_logits_max_abs_diff"] = float((again - plain).abs().max())
+        row["floor_s"] = time.perf_counter() - t0
+        if r_floor["ids"]:
+            row["floor_routing_flips"] = _routing(r_floor, r_plain)[
+                "routing_flips"]
+        del again
+    check(diff <= band, f"{cfg.name} {cfg.dtype} kernel vs plain prefill "
+          f"logits differ by {diff} (band {band}; {row})")
+    top2 = plain.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    clear = margin > band
+    same = logits.argmax(-1) == plain.argmax(-1)
+    check(bool(same[clear].all()), f"{cfg.name}: argmax differs where the "
+          f"top-2 margin exceeds the band: {margin.tolist()}")
+    row.update(top2_margin=margin.tolist(), argmax_equal=same.tolist())
+    if r_kernel["ids"]:
+        row.update(_routing(r_kernel, r_plain))
+    return logits, row
+
+
+def _timed(fn) -> float:
+    """Seconds of ``fn()``, synchronised."""
+    import torch
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _family_params(api, expected):
+    """Seeded weights on the card, their count held to the reference's."""
+    import torch
+    t0 = time.perf_counter()
+    params = api.init_params(0)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    check(n == expected, f"{api.cfg.name} at {api.cfg.n_layers} layers: "
+          f"{n} parameters, the reference's param_specs count {expected}")
+    return params, dict(params=n, init_s=time.perf_counter() - t0)
+
+
+def _tokens(cfg, shape, seed=1):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                         device="cuda")
+
+
+def _serve_main(counted, arch) -> dict:
+    """``launch.serve.main`` at its defaults on the card: no kernel, 31
+    timed steps, finite logits."""
+    import torch
+    from repro_torch.launch import serve
+    res, t_main, launches = counted(lambda: serve.main(["--arch", arch]))
+    check(not any(launches.values()), f"{arch} decode launched {launches}")
+    check(res["steps"] == 31 and bool(torch.isfinite(res["logits"]).all()),
+          f"{arch}: serve.main decodes 31 timed steps with finite logits")
+    return dict(decode_batch=4, decode_steps=res["steps"],
+                decode_ms_per_step=res["ms_per_step"],
+                decode_tokens_per_s=res["tokens_per_s"], serve_main_s=t_main)
+
+
+def _teacher_forced(api, params, cache, tokens):
+    """Decode ``tokens`` [b, n] one position at a time: the last logits."""
+    for pos in range(tokens.shape[1]):
+        logits, cache = api.decode_step(params, cache,
+                                        tokens[:, pos:pos + 1], pos)
+    return logits
+
+
+def _fill_memory(api, params, cache, frames):
+    """Whisper's cross-attention memory from ``encode``'s output through
+    each decoder layer's ``xattn`` K/V projection."""
+    from repro_torch.models import attention, encdec
+    enc = encdec.encode(api.cfg, params, frames)
+    for i, lp in enumerate(params["dec_layers"]):
+        _, (k, v) = attention.attn_forward(
+            lp["xattn"], enc, api.cfg, causal=False, use_rope=False,
+            kv_x=enc, return_kv=True)
+        cache["mem_k"][i].copy_(k)
+        cache["mem_v"][i].copy_(v)
+    return cache
+
+
+def phase_serve_moe(counters: dict) -> dict:
+    """moonshot-v1-16b-a3b at full width and depth and llama4-scout at
+    full width, depth cut to 4 (the full model needs sharding)."""
+    import torch
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.models import build_model
+    wrappers, counted = _serve_setup()
+    tc = {"flash_attention": "tensor-core"}
+    out = {}
+    for arch, layers, n_params in FAMILY_CELLS["serve_moe"]:
+        cfg = _family_config(arch, layers)
+        api = build_model(cfg)
+        params, row = _family_params(api, n_params)
+        tokens = _tokens(cfg, FAMILY_PROMPT[arch])
+        batch = {"tokens": tokens}
+        row["warmup_s"] = _timed(lambda: api.prefill(params, batch))
+        n_attn = cfg.n_layers
+        logits, pre = _family_prefill(api, params, batch, counted, wrappers,
+                                      {"flash_attention": n_attn}, tc,
+                                      floor="flash")
+        _count(counters, "flash_attention", f"serve_moe.{arch}", n_attn)
+        row.update(pre, layers=cfg.n_layers, d_model=cfg.d_model,
+                   experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+                   capacity=_moe_capacity(cfg, tokens.numel()),
+                   prompt=list(tokens.shape),
+                   prefill_tokens_per_s=tokens.numel() / pre["prefill_s"])
+        if layers is not None:
+            # the depth-cut config's decode (serve.main builds the full
+            # one): 31 greedy steps
+            cache = api.init_decode_cache(logits.shape[0], 32)
+            dec, t_dec, launches = counted(lambda: greedy_decode(
+                api, params, cache, logits, 0, 31))
+            check(not any(launches.values())
+                  and bool(torch.isfinite(dec).all()),
+                  f"{arch} greedy decode launched {launches} or is not "
+                  f"finite")
+            row.update(decode_batch=logits.shape[0], decode_steps=31,
+                       decode_ms_per_step=t_dec / 31 * 1e3)
+            del cache
+        row.update(_idle_probe(api, params, logits))
+        del params
+        _free()
+        if layers is None:
+            # f32 at 4 layers (48 do not fit), then serve.main, which draws
+            # its own full-size weights
+            api32 = build_model(cfg.with_overrides(n_layers=4,
+                                                   dtype="float32"))
+            params32 = api32.init_params(0)
+            _, pre32 = _family_prefill(
+                api32, params32, batch, counted, wrappers,
+                {"flash_attention": 4}, {"flash_attention": "f32-core"})
+            _count(counters, "flash_attention", f"serve_moe.{arch}.f32", 4)
+            row["f32_4_layers"] = pre32
+            del params32
+            _free()
+            row.update(_serve_main(counted, arch))
+        row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out[arch] = row
+    emit("serve_moe", cells=out, nvidia_smi=nvidia_smi())
+    return out
+
+
+def _moe_capacity(cfg, tokens):
+    from repro_torch.models.moe import moe_capacity
+    return moe_capacity(tokens, cfg)
+
+
+JAMBA_F32_PROMPT = (2, 4096)
+
+
+def phase_serve_hybrid(counters: dict) -> dict:
+    """jamba-v0.1-52b at full width, one 8-layer group (attention at
+    layer 3, Mamba-2 at the other seven, MoE at the odd layers)."""
+    import dataclasses
+    import torch
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.models import build_model
+    wrappers, counted = _serve_setup()
+    (arch, layers, n_params), = FAMILY_CELLS["serve_hybrid"]
+    cfg = _family_config(arch, layers)
+    api = build_model(cfg)
+    params, row = _family_params(api, n_params)
+    tokens = _tokens(cfg, FAMILY_PROMPT[arch])
+    batch = {"tokens": tokens}
+    row["warmup_s"] = _timed(lambda: api.prefill(params, batch))
+    expect = {"ssd_scan": 7, "flash_attention": 1}
+    logits, pre = _family_prefill(
+        api, params, batch, counted, wrappers, expect,
+        {"ssd_scan": "tensor-core", "flash_attention": "tensor-core"},
+        floor="ssd")
+    for kernel, n in expect.items():
+        _count(counters, kernel, "serve_hybrid", n)
+    row.update(pre, layers=cfg.n_layers, d_model=cfg.d_model,
+               prompt=list(tokens.shape),
+               capacity=_moe_capacity(cfg, tokens.numel()),
+               prefill_tokens_per_s=tokens.numel() / pre["prefill_s"])
+    # 31 greedy steps over the mixed cache: 1 K/V layer, 7 conv/state
+    cache = api.init_decode_cache(2, 32)
+    check(set(cache) == {"k", "v", "conv", "state"}
+          and cache["k"].shape[0] == 1 and cache["conv"].shape[0] == 7
+          and cache["state"].shape[0] == 7,
+          f"Jamba's decode cache {({k: tuple(v.shape) for k, v in cache.items()})}")
+    row["decode_cache"] = {k: list(v.shape) for k, v in cache.items()}
+    dec, t_dec, launches = counted(lambda: greedy_decode(
+        api, params, cache, logits, 0, 31))
+    check(not any(launches.values()) and bool(torch.isfinite(dec).all()),
+          f"Jamba greedy decode launched {launches} or is not finite")
+    row.update(decode_batch=2, decode_steps=31,
+               decode_ms_per_step=t_dec / 31 * 1e3,
+               **_idle_probe(api, params, logits))
+    row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del params, cache
+    _free()
+
+    # f32 at the same group (53 GB), then the teacher-forced decode
+    torch.cuda.reset_peak_memory_stats()
+    cfg32 = cfg.with_overrides(dtype="float32")
+    api32 = build_model(cfg32)
+    params32 = api32.init_params(0)
+    batch32 = {"tokens": tokens[:JAMBA_F32_PROMPT[0], :JAMBA_F32_PROMPT[1]]}
+    _, pre32 = _family_prefill(
+        api32, params32, batch32, counted, wrappers, expect,
+        {"ssd_scan": "f32-core", "flash_attention": "f32-core"})
+    for kernel, n in expect.items():
+        _count(counters, kernel, "serve_hybrid.f32", n)
+    row["f32"] = dict(pre32, prompt=list(batch32["tokens"].shape))
+    # capacity_factor 8: no token drops in the 64-token prefill nor in a
+    # one-token step; SSD chunk 64, since a prefill's length is a multiple
+    # of the chunk
+    cf8 = build_model(cfg32.with_overrides(
+        moe=dataclasses.replace(cfg.moe, capacity_factor=8.0),
+        ssm=dataclasses.replace(cfg.ssm, chunk=64)))
+    prompt = tokens[:, :64]
+    with _moe_routes() as rec:
+        pre = cf8.prefill(params32, {"tokens": prompt})
+    check(all(bool(k.all()) for k in rec["keep"]), "a token dropped at "
+          "capacity_factor 8")
+    dec = _teacher_forced(cf8, params32, cf8.init_decode_cache(2, 64), prompt)
+    tf = float((dec - pre).abs().max())
+    check(tf <= FAMILY_BANDS[arch]["float32"]
+          and torch.equal(dec.argmax(-1), pre.argmax(-1)),
+          f"Jamba teacher-forced decode vs prefill: {tf}")
+    row["teacher_forced"] = dict(tokens=64, logits_max_abs_diff=tf,
+                                 band=FAMILY_BANDS[arch]["float32"],
+                                 logits_abs_max=float(pre.abs().max()))
+    row["f32_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del params32
+    _free()
+    emit("serve_hybrid", arch=arch, **row, nvidia_smi=nvidia_smi())
+    return row
+
+
+def phase_serve_encdec(counters: dict) -> dict:
+    """whisper-medium at full width and depth: 24 encoder and 24 decoder
+    layers over 1,500 seeded frames."""
+    import torch
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.models import build_model
+    wrappers, counted = _serve_setup()
+    (arch, layers, n_params), = FAMILY_CELLS["serve_encdec"]
+    cfg = _family_config(arch, layers)
+    api = build_model(cfg)
+    params, row = _family_params(api, n_params)
+    tokens = _tokens(cfg, FAMILY_PROMPT[arch])
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    frames = torch.randn((tokens.shape[0], cfg.encoder_seq, cfg.d_model),
+                         generator=gen, device="cuda")
+    batch = {"frame_embeds": frames.to(torch.bfloat16), "tokens": tokens}
+    row["warmup_s"] = _timed(lambda: api.prefill(params, batch))
+    logits, pre = _family_prefill(
+        api, params, batch, counted, wrappers,
+        {"flash_attention": cfg.n_layers},
+        {"flash_attention": "tensor-core"}, floor="flash")
+    _count(counters, "flash_attention", "serve_encdec", cfg.n_layers)
+    row.update(pre, layers=cfg.n_layers, encoder_layers=cfg.n_encoder_layers,
+               d_model=cfg.d_model, prompt=list(tokens.shape),
+               frames=list(frames.shape),
+               prefill_tokens_per_s=tokens.numel() / pre["prefill_s"])
+    # the encoder (1,500 frames) and cross-attention take plain_attention
+    # by the reference's rule, and so does a 1,024-token decoder
+    short, t_short, launches = counted(lambda: api.prefill(
+        params, {**batch, "tokens": tokens[:, :1024]}))
+    check(not any(launches.values()) and bool(torch.isfinite(short).all()),
+          f"1,024-token decoder prefill launched {launches}")
+    row.update(short_prefill_s=t_short, short_prefill_launches=0)
+    # 31 greedy steps against memory filled from encode
+    cache = _fill_memory(api, params,
+                         api.init_decode_cache(tokens.shape[0], 32),
+                         batch["frame_embeds"])
+    dec, t_dec, launches = counted(lambda: greedy_decode(
+        api, params, cache, logits, 0, 31))
+    check(not any(launches.values()) and bool(torch.isfinite(dec).all()),
+          f"Whisper greedy decode launched {launches}")
+    row.update(greedy_decode_ms_per_step=t_dec / 31 * 1e3,
+               **_idle_probe(api, params, logits))
+    row.update(_serve_main(counted, arch))
+    row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del params, cache
+    _free()
+    api32 = build_model(cfg.with_overrides(dtype="float32"))
+    params32 = api32.init_params(0)
+    batch32 = {"frame_embeds": frames, "tokens": tokens}
+    _, pre32 = _family_prefill(
+        api32, params32, batch32, counted, wrappers,
+        {"flash_attention": cfg.n_layers}, {"flash_attention": "f32-core"})
+    _count(counters, "flash_attention", "serve_encdec.f32", cfg.n_layers)
+    row["f32"] = pre32
+    prompt = tokens[:, :64]
+    pre = api32.prefill(params32, {"frame_embeds": frames, "tokens": prompt})
+    cache = _fill_memory(api32, params32,
+                         api32.init_decode_cache(tokens.shape[0], 64), frames)
+    dec = _teacher_forced(api32, params32, cache, prompt)
+    tf = float((dec - pre).abs().max())
+    check(tf <= FAMILY_BANDS[arch]["float32"]
+          and torch.equal(dec.argmax(-1), pre.argmax(-1)),
+          f"Whisper teacher-forced decode vs prefill: {tf}")
+    row["teacher_forced"] = dict(tokens=64, logits_max_abs_diff=tf,
+                                 band=FAMILY_BANDS[arch]["float32"],
+                                 logits_abs_max=float(pre.abs().max()))
+    del params32, cache
+    _free()
+    emit("serve_encdec", arch=arch, **row, nvidia_smi=nvidia_smi())
+    return row
+
+
+def phase_serve_vlm(counters: dict) -> dict:
+    """phi-3-vision-4.2b at full width and depth: 576 seeded patch
+    embeddings before 3,520 tokens, head dim 96."""
+    import torch
+    from repro_torch.models import build_model
+    wrappers, counted = _serve_setup()
+    (arch, layers, n_params), = FAMILY_CELLS["serve_vlm"]
+    cfg = _family_config(arch, layers)
+    api = build_model(cfg)
+    params, row = _family_params(api, n_params)
+    tokens = _tokens(cfg, FAMILY_PROMPT[arch])
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    patches = torch.randn((tokens.shape[0], cfg.n_patches, cfg.d_model),
+                          generator=gen, device="cuda")
+    batch = {"patch_embeds": patches.to(torch.bfloat16), "tokens": tokens}
+    row["warmup_s"] = _timed(lambda: api.prefill(params, batch))
+    logits, pre = _family_prefill(
+        api, params, batch, counted, wrappers,
+        {"flash_attention": cfg.n_layers},
+        {"flash_attention": "tensor-core"}, floor="flash")
+    _count(counters, "flash_attention", "serve_vlm", cfg.n_layers)
+    positions = tokens.shape[1] + cfg.n_patches
+    row.update(pre, layers=cfg.n_layers, d_model=cfg.d_model,
+               head_dim=cfg.resolved_head_dim(), prompt=list(tokens.shape),
+               patches=list(patches.shape), positions=positions,
+               prefill_tokens_per_s=tokens.shape[0] * positions
+               / pre["prefill_s"])
+    row.update(_idle_probe(api, params, logits))
+    row.update(_serve_main(counted, arch))
+    row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del params
+    _free()
+    api32 = build_model(cfg.with_overrides(dtype="float32"))
+    params32 = api32.init_params(0)
+    _, pre32 = _family_prefill(
+        api32, params32, {"patch_embeds": patches,
+                          "tokens": tokens[:, :VLM_F32_TOKENS]},
+        counted, wrappers, {"flash_attention": cfg.n_layers},
+        {"flash_attention": "f32-core"})
+    _count(counters, "flash_attention", "serve_vlm.f32", cfg.n_layers)
+    row["f32"] = dict(pre32, prompt=[tokens.shape[0], VLM_F32_TOKENS])
+    del params32
+    _free()
+    emit("serve_vlm", arch=arch, **row, nvidia_smi=nvidia_smi())
+    return row
 
 
 def _leaves(tree):
@@ -3642,6 +4391,10 @@ def _phases(counters: dict) -> dict:
         "executed_campaign": phase_executed_campaign,
         "serve": lambda: phase_serve(counters, "serve"),
         "serve_ssm": lambda: phase_serve(counters, "serve_ssm"),
+        "serve_moe": lambda: phase_serve_moe(counters),
+        "serve_hybrid": lambda: phase_serve_hybrid(counters),
+        "serve_encdec": lambda: phase_serve_encdec(counters),
+        "serve_vlm": lambda: phase_serve_vlm(counters),
     }
 
 
@@ -3679,6 +4432,7 @@ def main(argv=None) -> int:
                 t0 = time.perf_counter()
                 results[name] = fn()
                 phase_s[name] = time.perf_counter() - t0
+        _event_finish()          # if no phase after event_campaign did
     finally:
         _service_stop()
     if only is not None:
@@ -3712,6 +4466,8 @@ def main(argv=None) -> int:
             "vs plain: atol 2e-4 at the reference's shapes; 2e-4 + 1e-4 "
             "max|plain| at the path shape and l 32,768; views == copies"),
     }
+    #: the slices' other path shapes of a kernel, in its row
+    shapes = {"flash_attention": "hd96", "ssd_scan": "jamba"}
     kernels = []
     for name, (source, replaces, how) in meta.items():
         k = kern[name]
@@ -3730,6 +4486,12 @@ def main(argv=None) -> int:
             "library_ms": (None if k["library_us"] is None
                            else k["library_us"] / 1e3),
             "library": k["library"], "check": how})
+        if name in shapes:
+            kernels[-1][shapes[name]] = {
+                key: k[shapes[name]].get(key) for key in (
+                    "shape", "route", "kernel_us", "kernel_device_us",
+                    "bound_ms", "bound_by", "plain_us", "library_us",
+                    "issued_floor_ms", "max_abs_err", "y_max_abs_err")}
     emit("done", seconds=time.perf_counter() - t_start, phase_seconds=phase_s,
          campaign_ms_per_step=results["campaign"]["ms_per_step"],
          easy_ms_per_step=results["easy_campaign"]["ms_per_step"],

@@ -55,16 +55,30 @@ def _tensor(a):
 
 def params_from_reference(cfg, tree, device=None):
     """The port's LM parameters with exactly the values of the
-    reference's pytree ``tree`` (numpy arrays): ``embed/table`` [V, d],
-    ``head/w`` [V, d] (absent when tied), ``final_norm`` and the stacked
-    ``groups/pos{j}/...`` leaves [n_groups, ...], unstacked into the
-    port's per-layer list (layer ``gi * group_size + j``)."""
+    reference's pytree ``tree`` (numpy arrays).  Decoder-only: ``embed/
+    table`` [V, d], ``head/w`` [V, d] (absent when tied), ``final_norm``
+    and the stacked ``groups/pos{j}/...`` leaves [n_groups, ...] (MoE
+    layers' ``moe/{router,wi,wu,wo}`` among them), unstacked into the
+    port's per-layer list (layer ``gi * group_size + j``).
+    Encoder-decoder: ``embed``, ``head``, ``enc_pos``, ``dec_pos``,
+    ``enc_final_norm``, ``dec_final_norm`` as they are, and the stacked
+    ``enc_layers`` / ``dec_layers`` [L, ...] as per-layer lists."""
     def conv(node, index=None):
         if isinstance(node, dict):
             return {k: conv(v, index) for k, v in node.items()}
         a = np.asarray(node)
         return _tensor(a if index is None else a[index]).to(device)
 
+    if cfg.is_encoder_decoder:
+        out = {k: conv(tree[k]) for k in ("embed", "enc_pos", "dec_pos",
+                                          "enc_final_norm",
+                                          "dec_final_norm")}
+        out["head"] = conv(tree.get("head", {}))
+        out["enc_layers"] = [conv(tree["enc_layers"], i)
+                             for i in range(cfg.n_encoder_layers)]
+        out["dec_layers"] = [conv(tree["dec_layers"], i)
+                             for i in range(cfg.n_layers)]
+        return out
     groups = tree["groups"]
     g = group_size(cfg)
     layers = [conv(groups[f"pos{j}"], gi) for gi in range(n_groups(cfg))

@@ -21,10 +21,11 @@
 // So operations bound it; for f32 inputs the rate is the 67 TFLOP/s of the
 // f32 cores, and the bound 4.1 ms.
 //
-// Routes.  bf16 inputs at head dims 64 and 128 whose rows cp.async can copy
-// 16 bytes at a time (q, k, v 16-byte aligned, every stride a multiple of
-// 8 elements) take flash_fwd_tc on the tensor cores; f32 inputs, head dims
-// 32 and 256 and unaligned views take flash_fwd on the f32 cores.
+// Routes.  bf16 inputs at head dims 64, 96 and 128 whose rows cp.async can
+// copy 16 bytes at a time (q, k, v 16-byte aligned, every stride a
+// multiple of 8 elements) take flash_fwd_tc on the tensor cores; f32
+// inputs, head dims 32 and 256 and unaligned views take flash_fwd on the
+// f32 cores.
 //
 // flash_fwd_tc.  The rows of one (batch, KV head) pair -- the (position,
 // query head) pairs of the h / kv query heads that share it, so the 8
@@ -50,9 +51,14 @@
 // card checks (a CPU emulation at the reference's shapes); the split
 // keeps it under half of it (0.49 at the path shape on an H100).  Key
 // tiles wholly above the diagonal are skipped, and blocks start heaviest
-// (latest positions) first.  ptxas (sm_90a): 127 registers at hd 64, 169
-// at hd 128, no spills; 49 KB (hd 64) / 97 KB (hd 128) of dynamic shared
-// memory.
+// (latest positions) first.  Head dim 96 (phi-3-vision) runs the hd 128
+// layout with its last 32 columns zero-filled: six k-steps of S = Q K^T
+// read the 96 real columns, and O += P V runs at n 128 over V's zero
+// columns (a third more P V operations than the 96 columns need; the
+// padded columns of O are not stored), since a 96-wide B operand read
+// MN-major would end in half a 64-column swizzle atom.  ptxas (sm_90a):
+// 127 registers at hd 64, 169 at hd 128, no spills; 49 KB (hd 64) / 97 KB
+// (hd 96 and 128) of dynamic shared memory.
 //
 // flash_fwd (f32 cores).  The same rows in blocks of kRows = 64, one block
 // of 8 warps per tile, 8 rows per warp.  The block stages the tile's
@@ -280,6 +286,9 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
     case 64:
       return launch<T, 64>(q, k, v, out, b, sq, sk, h, kvh, qs, ks, vs,
                            causal, scale, stream);
+    case 96:
+      return launch<T, 96>(q, k, v, out, b, sq, sk, h, kvh, qs, ks, vs,
+                           causal, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, out, b, sq, sk, h, kvh, qs, ks, vs,
                             causal, scale, stream);
@@ -292,7 +301,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core route: bf16 q, k, v at head dims 64 and 128.
+// Tensor-core route: bf16 q, k, v at head dims 64, 96 and 128.
 
 namespace tc {
 
@@ -302,11 +311,14 @@ constexpr int kKeys = 64;             // keys per tile
 constexpr int kThreads = 128 * kWG;
 constexpr int kStages = 2;    // K/V ring depth
 
-// Bytes of one [rows][hd] bf16 tile: hd / 64 column blocks of [rows][64],
-// each row 128 bytes.
+// The head dim a tile is laid out at: 96 is padded to 128.
+__host__ __device__ constexpr int padded(int hd) { return hd == 96 ? 128 : hd; }
+
+// Bytes of one [rows][hd] bf16 tile: padded(hd) / 64 column blocks of
+// [rows][64], each row 128 bytes.
 template <int HD>
 __host__ __device__ constexpr int tile_bytes(int rows) {
-  return rows * HD * 2;
+  return rows * padded(HD) * 2;
 }
 template <int HD>
 __host__ __device__ constexpr int smem_bytes() {
@@ -484,8 +496,10 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
              const __nv_bfloat16* __restrict__ v,
              __nv_bfloat16* __restrict__ out, int sq, int sk, int h, int kvh,
              Strides qs, Strides ks, Strides vs, int causal, float scale) {
-  constexpr int CH = HD / 8;          // 16-byte chunks per row
-  constexpr int NO = HD / 2;          // output accumulator floats per thread
+  constexpr int HP = padded(HD);      // the tiles' head dim
+  constexpr int CH = HD / 8;          // 16-byte chunks of a row
+  constexpr int CP = HP / 8;          // ... of a tile row (past CH: zero)
+  constexpr int NO = HP / 2;          // output accumulator floats per thread
   constexpr float kLog2e = 1.4426950408889634f;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
@@ -506,13 +520,13 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
       causal ? (int)min((long long)sk, last_row / rep + 1) : sk;
   const int n_tiles = (k_end + kKeys - 1) / kKeys;
 
-  // the query tile (rows past the end are zero)
-  for (int idx = tid; idx < kRows * CH; idx += kThreads) {
-    const int r = idx / CH, c = idx % CH;
+  // the query tile (rows past the end and padded columns are zero)
+  for (int idx = tid; idx < kRows * CP; idx += kThreads) {
+    const int r = idx / CP, c = idx % CP;
     const long long row = row0 + r;
     const __nv_bfloat16* src = q;
     int bytes = 0;
-    if (row < n_rows) {
+    if (row < n_rows && c < CH) {
       const long long pos = row / rep;
       const int head = g * rep + (int)(row % rep);
       src = q + bi * qs.b + pos * qs.s + head * qs.h + c * 8;
@@ -520,10 +534,12 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
     }
     cp_async16(sQ + swz(r, c, kRows), src, bytes);
   }
-  // one K/V tile into ring stage st (keys past sk are zero).  This
-  // thread copies chunk c of rows r_base + i * R of every tile.
-  constexpr int R = kThreads / CH, NL = kKeys / R;
-  const int r_base = tid / CH, c_ld = tid % CH;
+  // one K/V tile into ring stage st (keys past sk and padded columns are
+  // zero).  This thread copies chunk c of rows r_base + i * R of every
+  // tile.
+  constexpr int R = kThreads / CP, NL = kKeys / R;
+  const int r_base = tid / CP, c_ld = tid % CP;
+  const bool real_col = c_ld < CH;
   const __nv_bfloat16* k_row = k + bi * ks.b + g * ks.h + c_ld * 8;
   const __nv_bfloat16* v_row = v + bi * vs.b + g * vs.h + c_ld * 8;
   const uint32_t d_ld = swz(r_base, c_ld, kKeys);
@@ -535,7 +551,7 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* vp = v_row + (long long)key0 * vs.s;
 #pragma unroll
     for (int i = 0; i < NL; ++i) {
-      const bool in = key0 + i * R < sk;
+      const bool in = real_col && key0 + i * R < sk;
       cp_async16(dk + i * R * 128, in ? kp + (long long)i * R * ks.s : k,
                  in ? 16 : 0);
       cp_async16(dv + i * R * 128, in ? vp + (long long)i * R * vs.s : v,
@@ -644,13 +660,13 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
     for (int kk = 0; kk < kKeys / 16; ++kk) {
       const uint32_t a[4] = {phi[4 * kk], phi[4 * kk + 1], phi[4 * kk + 2],
                              phi[4 * kk + 3]};
-      pv_product<HD>(o, a, desc(vt + kk * 2048, tile_bytes<64>(kKeys), 1024));
+      pv_product<HP>(o, a, desc(vt + kk * 2048, tile_bytes<64>(kKeys), 1024));
     }
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk) {
       const uint32_t a[4] = {plo[4 * kk], plo[4 * kk + 1], plo[4 * kk + 2],
                              plo[4 * kk + 3]};
-      pv_product<HD>(o, a, desc(vt + kk * 2048, tile_bytes<64>(kKeys), 1024));
+      pv_product<HP>(o, a, desc(vt + kk * 2048, tile_bytes<64>(kKeys), 1024));
     }
     wg_commit();
     wg_wait0();
@@ -702,12 +718,13 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 
 }  // namespace tc
 
-// The tensor-core route takes bf16 inputs at head dims 64 and 128 whose
-// rows cp.async can copy 16 bytes at a time: q, k, v 16-byte aligned and
-// every stride a multiple of 8 elements.  Everything else takes flash_fwd.
+// The tensor-core route takes bf16 inputs at head dims 64, 96 and 128
+// whose rows cp.async can copy 16 bytes at a time: q, k, v 16-byte aligned
+// and every stride a multiple of 8 elements.  Everything else takes
+// flash_fwd.
 bool tensor_core_route(int dtype, int hd, const void* q, const void* k,
                        const void* v, const long long* strides) {
-  if (dtype != 1 || (hd != 64 && hd != 128)) return false;
+  if (dtype != 1 || (hd != 64 && hd != 96 && hd != 128)) return false;
   for (const void* p : {q, k, v})
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
   for (int i = 0; i < 9; ++i)
@@ -721,7 +738,7 @@ bool tensor_core_route(int dtype, int hd, const void* q, const void* k,
 // [b, sk, kv, hd], each with unit stride in its last dimension and the
 // given element strides for batch, sequence and head; out: [b, sq, h, hd]
 // contiguous, in the inputs' dtype (dtype 0: f32, 1: bf16).  hd in
-// {32, 64, 128, 256}; h % kv == 0; scale is hd^-0.5 rounded to f32.
+// {32, 64, 96, 128, 256}; h % kv == 0; scale is hd^-0.5 rounded to f32.
 // stream: a cudaStream_t.  *route (if not null) is set to 1 when the
 // tensor-core kernel runs, 0 for flash_fwd.  Returns the CUDA error of the
 // launch (0 if it was accepted).
@@ -740,11 +757,16 @@ extern "C" int flash_attention_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool tensor_cores = tensor_core_route(dtype, hd, q, k, v, strides);
   if (route != nullptr) *route = tensor_cores ? 1 : 0;
-  if (tensor_cores)
-    return hd == 64 ? tc::launch<64>(q, k, v, out, b, sq, sk, h, kvh, qs, ks,
-                                     vs, causal, scale, st)
-                    : tc::launch<128>(q, k, v, out, b, sq, sk, h, kvh, qs,
-                                      ks, vs, causal, scale, st);
+  if (tensor_cores) {
+    if (hd == 64)
+      return tc::launch<64>(q, k, v, out, b, sq, sk, h, kvh, qs, ks, vs,
+                            causal, scale, st);
+    if (hd == 96)
+      return tc::launch<96>(q, k, v, out, b, sq, sk, h, kvh, qs, ks, vs,
+                            causal, scale, st);
+    return tc::launch<128>(q, k, v, out, b, sq, sk, h, kvh, qs, ks, vs,
+                           causal, scale, st);
+  }
   if (dtype == 0)
     return dispatch_hd<float>(hd, q, k, v, out, b, sq, sk, h, kvh, qs, ks, vs,
                               causal, scale, st);

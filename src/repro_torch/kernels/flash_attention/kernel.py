@@ -3,7 +3,7 @@
 ``flash_attention_cuda`` launches ``csrc/flash_attention.cu`` on CUDA
 tensors and counts its launches; the plain versions for CPU tensors are
 in ``ref.py``.  The C entry picks the kernel from its arguments: bf16
-inputs at head dims 64 and 128 with 16-byte aligned rows go to the
+inputs at head dims 64, 96 and 128 with 16-byte aligned rows go to the
 tensor-core kernel, everything else to the f32-core one
 (``flash_attention_cuda.last_route`` says which ran last).
 """
@@ -17,7 +17,7 @@ import torch
 from repro_torch.kernels import _build
 
 #: head dims the kernel is instantiated for
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 96, 128, 256)
 #: the C entry's route codes
 ROUTES = ("f32-core", "tensor-core")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

@@ -5,7 +5,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
         --reduced --device cpu
 
-Runs on the CUDA device by default (``--device cuda``) and raises without
+``--arch`` takes every registry id (dense, MoE, hybrid, SSM, VLM and the
+encoder-decoder).  As in the reference's launcher, whisper-medium decodes
+against its zero cross-attention memory and phi-3-vision decodes text
+tokens only (no image prefix).  Runs on the CUDA device by default (``--device cuda``) and raises without
 one.  Weights come from the port's own seeded init
 (``api.init_params(0)``), not the reference's draws.  The first token of
 each sequence is ``jax.random.randint(key(0), (batch, 1), 2, vocab)``,

@@ -1,4 +1,5 @@
-"""Model API of the port's LM stack (dense-decoder and pure-SSM serving).
+"""Model API of the port's LM stack: every family of the registry (dense,
+MoE, hybrid, pure SSM, VLM and the encoder-decoder).
 
 ``build_model(cfg, device=None)`` returns a ``ModelApi`` whose functions
 run on the CUDA device unless ``device="cpu"`` is passed: ``None`` means
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
 
 
@@ -28,16 +30,15 @@ class ModelApi:
 
 
 def build_model(cfg: ModelConfig, device=None) -> ModelApi:
-    """The serving API of ``cfg`` on ``device`` (None: CUDA): the dense
-    family and pure SSM (Mamba-2).  Raises ``NotImplementedError`` for a
-    family the port does not serve yet (MoE, hybrid, encoder-decoder,
-    VLM)."""
-    T.check_supported(cfg)
+    """The serving API of ``cfg`` on ``device`` (None: CUDA): the
+    encoder-decoder (``models.encdec``, a batch of ``frame_embeds`` and
+    ``tokens``) or a decoder-only family (``models.transformer``)."""
     dev = resolve_device(device)
+    m = E if cfg.is_encoder_decoder else T
     return ModelApi(
         cfg=cfg, device=dev,
-        init_params=lambda seed=0: T.init_params(cfg, seed, dev),
-        prefill=lambda p, b, force=None: T.prefill(cfg, p, b, force=force),
-        decode_step=lambda p, c, t, pos: T.decode_step(cfg, p, c, t, pos),
-        init_decode_cache=lambda b, s: T.init_decode_cache(cfg, b, s, dev),
+        init_params=lambda seed=0: m.init_params(cfg, seed, dev),
+        prefill=lambda p, b, force=None: m.prefill(cfg, p, b, force=force),
+        decode_step=lambda p, c, t, pos: m.decode_step(cfg, p, c, t, pos),
+        init_decode_cache=lambda b, s: m.init_decode_cache(cfg, b, s, dev),
     )

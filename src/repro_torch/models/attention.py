@@ -9,15 +9,17 @@ Implementations, numerically equivalent:
     never imports this module) and are re-exported here.
   - ``decode_attention``: one query token against a KV cache.
 
-``attn_forward`` keeps the reference's dispatch rule: a sequence of at
-least 2,048 tokens, a multiple of 512, goes through
-``kernels.flash_attention.ops.flash_attention`` (the CUDA kernel on the
-card, the blocked plain version on the CPU or with ``force="torch"``);
-shorter ones through ``plain_attention``.  The reference's
+``attn_forward`` keeps the reference's dispatch rule: queries of at least
+2,048 positions, a multiple of 512, against keys whose count is a
+multiple of 512 go through ``kernels.flash_attention.ops.flash_attention``
+(the CUDA kernel on the card, the blocked plain version on the CPU or with
+``force="torch"``); others through ``plain_attention``.  The reference's
 ``attn_schedule`` is not needed: its two schedules give the same numbers,
-and the dispatch picks the triangular one for causal self-attention.
-Cross-attention (``kv_x``, ``attn_cross_decode``) waits with the
-encoder-decoder (ROADMAP Queue 1 item 14d).
+and the dispatch picks the triangular one for causal self-attention (the
+rectangular one for cross and encoder attention, ``causal=False``).
+Cross-attention reads its keys and values from ``kv_x`` (the encoder's
+output) in prefill, and from the precomputed memory in decode
+(``attn_cross_decode``).
 """
 
 from __future__ import annotations
@@ -35,7 +37,10 @@ FLASH_BLOCK = 512
 FLASH_MIN_SEQ = 2048
 
 
-def init_attn(cfg: ModelConfig, gen, dtype):
+def init_attn(cfg: ModelConfig, gen, dtype, cross: bool = False):
+    """Q/K/V/O projections (and QKV biases when ``cfg.qkv_bias``).  A
+    cross-attention block (``cross``) has the same leaves, as in the
+    reference."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
         cfg.resolved_head_dim()
     p = {"wq": dense_init(gen, d, (h, hd), dtype),
@@ -95,23 +100,29 @@ def uses_flash(cfg: ModelConfig, s: int, sk: int) -> bool:
             and s % FLASH_BLOCK == 0 and sk % FLASH_BLOCK == 0)
 
 
-def attn_forward(p, x, cfg: ModelConfig, *, use_rope=True, force=None):
-    """Causal prefill self-attention.  x: [b,s,d].  ``force`` goes to the
-    flash dispatch (None | 'cuda' | 'torch').  Returns [b,s,d]."""
+def attn_forward(p, x, cfg: ModelConfig, *, causal=True, use_rope=True,
+                 kv_x=None, return_kv=False, force=None):
+    """Prefill self- (or cross-) attention.  x: [b, s, d]; kv_x: the
+    source of K/V for cross-attention, or None (self).  ``force`` goes to
+    the flash dispatch (None | 'cuda' | 'torch').  Returns [b, s, d] (and
+    (k, v) [b, sk, kv, hd] if ``return_kv``)."""
     s = x.shape[1]
     q = _project_q(p, x, cfg)
-    k, v = _project_kv(p, x, cfg)
+    k, v = _project_kv(p, x if kv_x is None else kv_x, cfg)
     if use_rope:
         pos = torch.arange(s, device=x.device)
         sin, cos = rope_angles(pos, cfg.resolved_head_dim(), cfg.rope_theta)
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
     if uses_flash(cfg, s, k.shape[1]):
-        o = ops.flash_attention(q, k, v, causal=True, block_q=FLASH_BLOCK,
+        o = ops.flash_attention(q, k, v, causal=causal, block_q=FLASH_BLOCK,
                                 block_k=FLASH_BLOCK, force=force)
     else:
-        o = plain_attention(q, k, v, causal=True)
-    return _out_proj(p, o, x.dtype)
+        o = plain_attention(q, k, v, causal=causal)
+    out = _out_proj(p, o, x.dtype)
+    if return_kv:
+        return out, (k, v)
+    return out
 
 
 def attn_decode(p, x, cfg: ModelConfig, cache_k, cache_v, pos: int, *,
@@ -128,4 +139,12 @@ def attn_decode(p, x, cfg: ModelConfig, cache_k, cache_v, pos: int, *,
     cache_k[:, pos] = k_new[:, 0]
     cache_v[:, pos] = v_new[:, 0]
     o = decode_attention(q, cache_k, cache_v, length=pos + 1)
+    return _out_proj(p, o, x.dtype)
+
+
+def attn_cross_decode(p, x, cfg: ModelConfig, mem_k, mem_v):
+    """Cross-attention decode against the precomputed encoder K/V
+    ``mem_k``, ``mem_v`` [b, S_enc, kv, hd] (no RoPE).  x: [b, 1, d]."""
+    q = _project_q(p, x, cfg)
+    o = decode_attention(q, mem_k, mem_v, length=None)
     return _out_proj(p, o, x.dtype)

@@ -1,18 +1,22 @@
-"""Decoder-only LM serving: the dense and pure-SSM (Mamba-2) families
-(``repro/models/transformer.py``).
+"""Decoder-only LM serving: the dense, MoE, hybrid (Jamba), pure-SSM
+(Mamba-2) and VLM families (``repro/models/transformer.py``).
 
 Parameters are a dict of tensors in the reference's layouts, with the
 layers as a list (``params["layers"][i]``) rather than stacked groups:
 PyTorch runs eagerly, so ``backbone`` is a loop over layers and the
 reference's ``scan_layers`` and ``remat`` have no meaning here (nor has
-``sharding.annotate``, a no-op without a mesh).  A layer is an attention
-layer (``attn``) or a Mamba-2 mixer (``mamba``), with ``norm2`` and an MLP
-after it when ``d_ff > 0``.
+``sharding.annotate``, a no-op without a mesh).  Layer i takes the kind
+of position ``i % group_size`` in the reference's group: an attention
+layer (``attn``) or a Mamba-2 mixer (``mamba``), then, when ``d_ff > 0``,
+``norm2`` and an MLP (``mlp``) or an MoE FFN (``moe``,
+``cfg.layer_is_moe``).  A VLM batch may carry ``patch_embeds`` [b, P, d]
+(the stub frontend's output), prepended to the token embeddings.
 
-The dense family and pure SSM are ported.  A config with MoE or hybrid
-layers, an encoder-decoder or a VLM prefix raises
-``NotImplementedError`` naming its ROADMAP item; ``train_loss`` and
-``chunked_xent`` wait for the training slice (Queue 1 item 14e).
+The decode cache holds each layer's kind: keys and values for the
+attention layers only, conv buffers and SSD states for the Mamba-2
+layers only, each stacked over the layers of its kind.
+``train_loss`` and ``chunked_xent`` wait for the training slice (ROADMAP
+Queue 1 item 14e).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as S
+from repro_torch.models import moe as M
 
 
 def group_size(cfg: ModelConfig) -> int:
@@ -41,23 +46,6 @@ def n_groups(cfg: ModelConfig) -> int:
     return cfg.n_layers // group_size(cfg)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port does not run
-    yet, naming its ROADMAP item (Queue 1)."""
-    if cfg.is_encoder_decoder:
-        why = "the encoder-decoder waits for ROADMAP Queue 1 item 14d"
-    elif cfg.ssm is not None and cfg.attn_layer_period > 0:
-        why = "hybrid SSM/attention layers wait for ROADMAP Queue 1 item 14c"
-    elif cfg.moe.n_experts:
-        why = "MoE layers wait for ROADMAP Queue 1 item 14c"
-    elif cfg.frontend != "none":
-        why = "the VLM prefix waits for ROADMAP Queue 1 item 14d"
-    else:
-        return
-    raise NotImplementedError(f"{cfg.name} ({cfg.family}): {why}; the port "
-                              f"serves the dense and pure-SSM families only")
-
-
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
@@ -70,6 +58,23 @@ def _has_ffn(cfg: ModelConfig) -> bool:
     return cfg.d_ff > 0
 
 
+def _is_moe(cfg: ModelConfig, i: int) -> bool:
+    return cfg.layer_is_moe(i % group_size(cfg))
+
+
+def cache_slots(cfg: ModelConfig) -> list[int]:
+    """Layer i's index among the layers of its kind: its row of the
+    decode cache's ``k``/``v`` (attention) or ``conv``/``state``
+    (Mamba-2) stack."""
+    seen = {"attn": 0, "mamba": 0}
+    slots = []
+    for i in range(cfg.n_layers):
+        kind = _layer_kind(cfg, i)
+        slots.append(seen[kind])
+        seen[kind] += 1
+    return slots
+
+
 # ------------------------------------------------------------------- init
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None):
@@ -78,7 +83,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     config's dtype.  The draws are the reference's distributions, not its
     bits: weights carried across from the reference go through
     ``repro_torch.convert.params_from_reference``."""
-    check_supported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     dtype = _dtype(cfg)
@@ -94,7 +98,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
             lp["mamba"] = S.init_mamba(cfg, gen, dtype)
         if _has_ffn(cfg):
             lp["norm2"] = L.init_norm(cfg, dtype, device)
-            lp["mlp"] = L.init_mlp(cfg, gen, dtype)
+            if _is_moe(cfg, i):
+                lp["moe"] = M.init_moe(cfg, gen, dtype)
+            else:
+                lp["mlp"] = L.init_mlp(cfg, gen, dtype)
         params["layers"].append(lp)
     return params
 
@@ -106,9 +113,14 @@ def _use_rope(cfg: ModelConfig) -> bool:
 
 
 def _ffn(cfg, lp, x):
+    """x plus the layer's MLP or MoE FFN (the MoE's aux loss is not used
+    in serving)."""
     if not _has_ffn(cfg):
         return x
-    return x + L.apply_mlp(lp["mlp"], L.apply_norm(lp["norm2"], x, cfg), cfg)
+    h = L.apply_norm(lp["norm2"], x, cfg)
+    if "moe" in lp:
+        return x + M.apply_moe(lp["moe"], h, cfg)[0]
+    return x + L.apply_mlp(lp["mlp"], h, cfg)
 
 
 def backbone(cfg: ModelConfig, params, x, *, force=None):
@@ -126,18 +138,22 @@ def backbone(cfg: ModelConfig, params, x, *, force=None):
 
 
 def embed_inputs(cfg: ModelConfig, params, batch):
-    """tokens -> [b, s, d] (the text path; the VLM prefix waits for
-    ROADMAP Queue 1 item 14d)."""
-    return L.embed_tokens(params["embed"], batch["tokens"], cfg)
+    """tokens [+ patch_embeds] -> [b, P + s, d]: a VLM batch's
+    ``patch_embeds`` [b, P, d] (cast to the embeddings' dtype) go before
+    the token embeddings."""
+    x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+    if cfg.frontend == "vision" and "patch_embeds" in batch:
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    return x
 
 
 # ---------------------------------------------------------------- serving
 
 def prefill(cfg: ModelConfig, params, batch, *, force=None):
     """Prefill forward -> last-position logits [b, V] f32 (no cache, as
-    the reference's).  ``force`` (None | 'cuda' | 'torch') picks how the
-    flash branch or the SSD scan runs."""
-    check_supported(cfg)
+    the reference's).  ``batch``: ``tokens`` [b, s] (and ``patch_embeds``
+    for a VLM).  ``force`` (None | 'cuda' | 'torch') picks how the flash
+    branch or the SSD scan runs."""
     x = embed_inputs(cfg, params, batch)
     x = backbone(cfg, params, x, force=force)
     x = L.apply_norm(params["final_norm"], x[:, -1:], cfg)
@@ -147,24 +163,30 @@ def prefill(cfg: ModelConfig, params, batch, *, force=None):
 def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
                       device=None):
     """Zero decode cache on ``device`` (None: CUDA, raising without a
-    card): the KV cache ``{"k": [L, b, S, kv, hd], "v": ...}`` in the
-    config's dtype for attention layers, or for Mamba-2 layers
-    ``{"conv": [L, b, K-1, conv_dim]`` in the config's dtype, ``"state":
-    [L, b, h, p, n]`` f32``}`` (``max_seq`` unused).  ``decode_step``
+    card), by layer kind: for the attention layers ``{"k": [La, b, S, kv,
+    hd], "v": ...}`` in the config's dtype, for the Mamba-2 layers
+    ``{"conv": [Lm, b, K-1, conv_dim]`` in the config's dtype, ``"state":
+    [Lm, b, h, p, n]`` f32``}`` (``cache_slots`` maps a layer to its row);
+    a family without one of the kinds has no such keys.  ``decode_step``
     writes it in place."""
-    check_supported(cfg)
     device = resolve_device(device)
-    if _layer_kind(cfg, 0) == "mamba":
+    kinds = [_layer_kind(cfg, i) for i in range(cfg.n_layers)]
+    n_attn, n_mamba = kinds.count("attn"), kinds.count("mamba")
+    cache = {}
+    if n_attn:
+        shape = (n_attn, batch, max_seq, cfg.n_kv_heads,
+                 cfg.resolved_head_dim())
+        cache.update({name: torch.zeros(shape, dtype=_dtype(cfg),
+                                        device=device)
+                      for name in ("k", "v")})
+    if n_mamba:
         (conv, conv_dt), (state, state_dt) = S.mamba_decode_cache_specs(
             cfg, batch)
-        return {"conv": torch.zeros((cfg.n_layers, *conv), dtype=conv_dt,
-                                    device=device),
-                "state": torch.zeros((cfg.n_layers, *state), dtype=state_dt,
-                                     device=device)}
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
-             cfg.resolved_head_dim())
-    return {name: torch.zeros(shape, dtype=_dtype(cfg), device=device)
-            for name in ("k", "v")}
+        cache["conv"] = torch.zeros((n_mamba, *conv), dtype=conv_dt,
+                                    device=device)
+        cache["state"] = torch.zeros((n_mamba, *state), dtype=state_dt,
+                                     device=device)
+    return cache
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int):
@@ -173,17 +195,17 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int):
     and SSD states) into ``cache`` in place.  Returns (logits [b, V] f32,
     cache)."""
     x = L.embed_tokens(params["embed"], tokens, cfg)
-    for i, lp in enumerate(params["layers"]):
+    for lp, j in zip(params["layers"], cache_slots(cfg)):
         h = L.apply_norm(lp["norm1"], x, cfg)
         if "attn" in lp:
-            h = A.attn_decode(lp["attn"], h, cfg, cache["k"][i],
-                              cache["v"][i], pos, use_rope=_use_rope(cfg))
+            h = A.attn_decode(lp["attn"], h, cfg, cache["k"][j],
+                              cache["v"][j], pos, use_rope=_use_rope(cfg))
         else:
             h, conv, state = S.mamba_decode(lp["mamba"], h, cfg,
-                                            cache["conv"][i],
-                                            cache["state"][i])
-            cache["conv"][i].copy_(conv)
-            cache["state"][i].copy_(state)
+                                            cache["conv"][j],
+                                            cache["state"][j])
+            cache["conv"][j].copy_(conv)
+            cache["state"][j].copy_(state)
         x = _ffn(cfg, lp, x + h)
     x = L.apply_norm(params["final_norm"], x, cfg)
     return L.lm_logits(params["embed"], params["head"], x, cfg)[:, 0], cache

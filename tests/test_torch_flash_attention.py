@@ -38,7 +38,8 @@ from repro_torch.models import attention as port_attention  # noqa: E402
 SWEEP = [(2, 256, 256, 8, 2, 64, 128, 128),
          (1, 256, 256, 4, 4, 128, 64, 128),
          (2, 128, 384, 4, 1, 64, 128, 128),     # MQA, rectangular
-         (1, 512, 512, 2, 2, 32, 128, 256)]
+         (1, 512, 512, 2, 2, 32, 128, 256),
+         (1, 256, 256, 4, 4, 96, 128, 128)]     # phi-3-vision's head dim
 ATOL = {"float32": 3e-5, "bfloat16": 3e-2}
 
 
@@ -117,7 +118,7 @@ def test_model_module_reexports_the_kernel_package_versions():
 def test_kernel_source_is_built_with_the_others():
     assert _build.SOURCES["flash_attention"].name == "flash_attention.cu"
     assert _build.SOURCES["flash_attention"].exists()
-    assert HEAD_DIMS == (32, 64, 128, 256)
+    assert HEAD_DIMS == (32, 64, 96, 128, 256)
 
 
 def test_cuda_mode_on_cpu_tensors_raises():
@@ -220,7 +221,8 @@ def _card():
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("b,sq,sk,h,kv,hd", [
     (2, 256, 256, 8, 2, 64), (1, 256, 256, 4, 4, 128), (2, 128, 384, 4, 1, 64),
-    (1, 512, 512, 2, 2, 32), (1, 256, 256, 4, 4, 256), (1, 100, 70, 4, 2, 64)])
+    (1, 512, 512, 2, 2, 32), (1, 256, 256, 4, 4, 256), (1, 100, 70, 4, 2, 64),
+    (1, 256, 256, 4, 4, 96)])
 def test_kernel_matches_plain_on_card(b, sq, sk, h, kv, hd, causal, dtype):
     dev = _card()
     (q, k, v), _ = _qkv(b, sq, sk, h, kv, hd, 6, dtype)
@@ -251,9 +253,10 @@ def test_kernel_reads_strided_inputs_on_card():
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("b,sq,sk,h,kv,hd", [
     (2, 256, 256, 8, 2, 64), (1, 256, 256, 4, 4, 128),
-    (2, 128, 384, 4, 1, 64), (1, 100, 70, 4, 2, 64), (1, 96, 200, 6, 3, 128)])
+    (2, 128, 384, 4, 1, 64), (1, 100, 70, 4, 2, 64), (1, 96, 200, 6, 3, 128),
+    (1, 256, 256, 4, 4, 96), (2, 100, 70, 4, 2, 96)])
 def test_tensor_core_route_on_card(b, sq, sk, h, kv, hd, causal):
-    """bf16 at head dims 64 and 128 takes the tensor-core kernel, within
+    """bf16 at head dims 64, 96 and 128 takes the tensor-core kernel, within
     atol 3e-2 and 2 bf16 ulps of |ref| + 1e-4 of the oracle."""
     dev = _card()
     (q, k, v), _ = _qkv(b, sq, sk, h, kv, hd, 9, "bfloat16")

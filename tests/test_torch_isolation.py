@@ -120,18 +120,33 @@ def test_models_default_to_cuda_and_never_fall_back(monkeypatch):
     ("llama4-scout-17b-a16e", "item 14c"), ("moonshot-v1-16b-a3b", "item 14c"),
     ("jamba-v0.1-52b", "item 14c"),
     ("whisper-medium", "item 14d"), ("phi-3-vision-4.2b", "item 14d")])
-def test_unported_model_families_raise(arch, item):
+def test_unported_model_families_raise(monkeypatch, arch, item):
+    """The five families that the port refused until ROADMAP Queue 1
+    ``item`` was done now build and run a reduced prefill with
+    ``device="cpu"``, and without it default to CUDA, raising without a
+    card (never falling back to the CPU)."""
     from repro_torch.configs import get_config, smoke_reduce
-    from repro_torch.models import build_model
-    from repro_torch.models.transformer import init_params, prefill
-    cfg = get_config(arch)
-    for c in (cfg, smoke_reduce(cfg)):
-        with pytest.raises(NotImplementedError, match=item):
-            build_model(c, device="cpu")
-        with pytest.raises(NotImplementedError, match=item):
-            init_params(c)
-        with pytest.raises(NotImplementedError, match=item):
-            prefill(c, {}, {"tokens": None})
+    from repro_torch.models import build_model, encdec, transformer
+    cfg = smoke_reduce(get_config(arch))
+    api = build_model(cfg, device="cpu")
+    params = api.init_params(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 32))}
+    if cfg.is_encoder_decoder:
+        batch["frame_embeds"] = torch.randn(2, cfg.encoder_seq, cfg.d_model)
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = torch.randn(2, cfg.n_patches, cfg.d_model)
+    logits = api.prefill(params, batch)
+    assert logits.shape == (2, cfg.vocab_size), item
+    assert bool(torch.isfinite(logits).all()), item
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    module = encdec if cfg.is_encoder_decoder else transformer
+    for c in (get_config(arch), cfg):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_model(c)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            module.init_params(c, 0)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            module.init_decode_cache(c, 1, 8)
 
 
 def test_ssm_serving_imports_no_jax_and_never_falls_back(monkeypatch):
