@@ -253,6 +253,32 @@ Phases, each printing one JSON line:
                dim 96): patches [4, 576, 3072] + tokens [4, 3520]; flash
                32 times at head dim 96 (the route reported), bf16 and f32
                against ``force="torch"``; ``serve.main``
+  train        training (``repro_torch.train``): (a) ``run_training`` of
+               tinyllama-1.1b at full width and depth (22 x 2048, bf16,
+               seeded weights), 3 steps of 4 x 4,096 tokens in 2
+               microbatches (train_4k's batch of 256 cut to 4), AdamW
+               with f32 masters, per-layer remat, one checkpoint save:
+               finite losses, flash launched 22 x 2 x 2 times a step
+               (each layer's forward and its recompute, per microbatch),
+               ms per step, tokens/s, peak memory, the save's seconds and
+               bytes (free disk checked first), the device idle share of
+               one step; (b) one microbatch of (a)'s first batch through
+               ``train_loss`` and its gradient, kernel route against
+               ``force="torch"`` (loss, gradient norm, each layer's
+               attention projection gradients) beside the floor (the
+               plain run at flash block 256), f32 at 4 layers within
+               1e-4 relative, and the flash Function's dq, dk, dv
+               ``torch.equal`` to the blocked plain version's at
+               [2, 4096, 32, 64]; (c) mamba2-780m at full width, 8 of its
+               48 layers, 2 x 4,096, 2 steps: ssd_scan 16 calls a step on
+               the tensor-core route, the same comparison (floor: half
+               the SSD chunk) and the SSD Function's gradients
+               ``torch.equal`` at the path shape; (d) smoke-size
+               qwen2-1.5b, 8 steps against 4 + a crash at step 6 +
+               resume: the losses of steps 4-7 equal; (e)
+               ``python -m repro_torch.launch.train --arch tinyllama-1.1b
+               --reduced --steps 4`` prints its ``done:`` line (a child
+               process beside (d))
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -270,6 +296,7 @@ import argparse
 import functools
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -4360,6 +4387,423 @@ def phase_serve_vlm(counters: dict) -> dict:
     return row
 
 
+# ------------------------------------------------------------------ train
+
+#: the training cells: (arch, layers (None: published depth), global
+#: batch, seq, microbatches, steps).  tinyllama's train_4k batch of 256
+#: is cut to 4 (three steps fit the script's time); mamba2-780m's 48
+#: layers to 8, its batch to 2
+TRAIN_CELLS = {"dense": ("tinyllama-1.1b", None, 4, 4096, 2, 3),
+               "ssm": ("mamba2-780m", 8, 2, 4096, 1, 2)}
+#: |kernel route - force="torch"| of one microbatch's train_loss and
+#: gradients, bf16: the loss within the serving band of SERVE_CELLS; the
+#: global gradient norm (relative) and each layer's attention projection
+#: (tinyllama) or mixer (mamba2) gradients (max |diff| over max |g|)
+#: within a band set beside the floor an H100 showed (the plain run
+#: against itself at flash block 256 / half the SSD chunk): tinyllama's
+#: norm 1.86e-5 (kernel 6.07e-5), layers 6.29e-3 (6.49e-3); mamba2's
+#: norm 1.62e-4 (kernel 2.03e-3: its tensor-core forward differs from the
+#: plain one by up to 4.6e-4 before the backward), layers 0.0584
+#: (0.0606).  Bands: about three times the larger of the two, rounded up.
+#: f32 at 4 layers: 1e-4 relative (4.1e-7 seen).  PERF.md "Parity bands"
+TRAIN_BANDS = {"tinyllama-1.1b": {"loss": SERVE_CELLS["serve"][2]["bfloat16"],
+                                  "grad_norm": 2e-4, "attn": 0.02},
+               "mamba2-780m": {"loss": SERVE_CELLS["serve_ssm"][2]["bfloat16"],
+                               "grad_norm": 7e-3, "mixer": 0.2}}
+TRAIN_F32_REL = 1e-4
+#: the flash Function's torch.equal check: q [b, s, h, hd], k/v
+#: [b, s, kv, hd] (tinyllama's microbatch)
+TRAIN_FLASH_FN = (2, 4096, 32, 4, 64)
+#: the fault-tolerance cell: smoke-size qwen2-1.5b (f32), 8 steps
+TRAIN_FT = ("qwen2-1.5b", 32, 2)
+
+
+def _train_grads(api, params, batch, force=None):
+    """(loss, {name: grad}) of ``api.train_loss`` on ``batch``, through
+    the dispatch ``force`` (the grads in the params' dtype)."""
+    from repro_torch.train.step import value_and_grad
+    from repro_torch.utils.tree import flatten_with_names
+    loss, _, grads = value_and_grad(api, params, batch, force=force)
+    return loss, dict(flatten_with_names(grads))
+
+
+def _grad_norm(grads) -> float:
+    import torch
+    return float(torch.sqrt(sum(torch.sum(g.float() ** 2)
+                                for g in grads.values())))
+
+
+def _grad_diffs(a, b, pattern) -> dict:
+    """Run ``a`` against ``b`` (each (loss, grads)): the loss's and the
+    global gradient norm's relative differences, and per layer the max
+    |a - b| over the leaves whose name matches ``pattern`` relative to
+    their max |b|."""
+    import re
+    la, ga = a
+    lb, gb = b
+    per_layer: dict = {}
+    for n, g in gb.items():
+        m = re.match(r"layers/(\d+)/" + pattern, n)
+        if m:
+            i = int(m.group(1))
+            d = float((ga[n].float() - g.float()).abs().max())
+            s = float(g.float().abs().max())
+            prev = per_layer.get(i, (0.0, 0.0))
+            per_layer[i] = (max(prev[0], d), max(prev[1], s))
+    rel = [d / s if s else d for _, (d, s) in sorted(per_layer.items())]
+    norm_b = _grad_norm(gb)
+    return dict(loss=float(la), loss_diff=abs(float(la) - float(lb)),
+                loss_rel=abs(float(la) - float(lb)) / abs(float(lb)),
+                grad_norm=_grad_norm(ga),
+                grad_norm_rel=abs(_grad_norm(ga) - norm_b) / norm_b,
+                layer_rel=rel, layer_rel_max=max(rel))
+
+
+def _train_parity(api, params, batch, floor, pattern, counted, wrappers,
+                  kernel, expect):
+    """One microbatch through ``train_loss`` and ``backward``: the kernel
+    route (``kernel`` launched ``expect`` times, forward and recompute)
+    against ``force="torch"``, and the floor (``floor()``: the plain run
+    at flash block 256 or half the SSD chunk) against it."""
+    (k_out, t_kernel, launches) = counted(
+        lambda: _train_grads(api, params, batch))
+    check(launches == {**dict.fromkeys(wrappers, 0), kernel: expect},
+          f"{api.cfg.name} train_loss backward launched {launches}, "
+          f"expected {expect} {kernel}")
+    p_out, t_plain, p_launches = counted(
+        lambda: _train_grads(api, params, batch, force="torch"))
+    check(not any(p_launches.values()), f"force='torch' launched "
+          f"{p_launches}")
+    row = dict(kernel_vs_plain=_grad_diffs(k_out, p_out, pattern),
+               kernel_s=t_kernel, plain_s=t_plain)
+    del k_out
+    if floor is not None:
+        f_out = floor()
+        row["floor_vs_plain"] = _grad_diffs(f_out, p_out, pattern)
+    return row
+
+
+def _train_band_check(name, row, bands, key):
+    kv = row["kernel_vs_plain"]
+    check(kv["loss_diff"] <= bands["loss"],
+          f"{name}: loss differs by more than {bands['loss']}: {kv}")
+    for what, band in (("grad_norm_rel", bands["grad_norm"]),
+                       ("layer_rel_max", bands[key])):
+        if band is not None:
+            check(kv[what] <= band, f"{name}: {what} {kv[what]} over its "
+                  f"band {band} (floor {row.get('floor_vs_plain')})")
+
+
+def _timed_manager(record):
+    """A ``CheckpointManager`` whose saves block, each timed into
+    ``record`` with its step."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    class Timed(CheckpointManager):
+        def save(self, step, tree, metadata=None, blocking=False):
+            t0 = time.perf_counter()
+            out = super().save(step, tree, metadata, blocking=True)
+            record.append((step, time.perf_counter() - t0))
+            return out
+    return Timed
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _train_cell(cell, counted, wrappers, kernel, tmp):
+    """``run_training`` of a TRAIN_CELLS cell on the card: the main path
+    (``kernel`` launched once a layer for each microbatch's forward and
+    once for its recompute), its times, the one checkpoint save, peak
+    memory."""
+    import shutil
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import LoopConfig, loop, run_training
+    arch, layers, batch, seq, mb, steps = TRAIN_CELLS[cell]
+    cfg = _family_config(arch, layers)
+    api = build_model(cfg)
+    shape = ShapeConfig(f"train_{seq}", seq_len=seq, global_batch=batch,
+                        kind="train")
+    ocfg = AdamWConfig(lr_peak=3e-4, warmup_steps=2, total_steps=steps)
+    ck = os.path.join(tmp, cell)
+    per_step = cfg.n_layers * 2 * mb
+    n_params = sum(t.numel() for t in _leaves(api.init_params(0)))
+    _free()
+    need = n_params * (2 + 3 * 4)          # bf16 params, f32 master / m / v
+    free = shutil.disk_usage(tmp).free
+    check(free > 1.2 * need, f"{arch}: the checkpoint needs ~{need / 1e9:.1f}"
+          f" GB and {free / 1e9:.1f} GB are free under {tmp}")
+    saves: list = []
+    real = loop.CheckpointManager
+    loop.CheckpointManager = _timed_manager(saves)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        res, seconds, launches = counted(lambda: run_training(
+            api, shape, ocfg, LoopConfig(steps=steps, ckpt_dir=ck,
+                                         ckpt_every=steps, microbatches=mb)))
+    finally:
+        loop.CheckpointManager = real
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == {**dict.fromkeys(wrappers, 0),
+                       kernel: per_step * steps},
+          f"{arch} training launched {launches}, expected {per_step} "
+          f"{kernel} a step")
+    route = wrappers[kernel].last_route
+    check(route == "tensor-core", f"{arch} trained on the {route} route")
+    check(len(res.losses) == steps and all(map(math.isfinite, res.losses)),
+          f"{arch} losses {res.losses}")
+    check([s for s, _ in saves] == [steps], f"{arch} saves {saves}")
+    timed = res.step_times[1:]
+    ms = sum(timed) / len(timed) * 1e3
+    row = dict(arch=arch, layers=cfg.n_layers, d_model=cfg.d_model,
+               dtype=cfg.dtype, params=n_params, batch=batch, seq=seq,
+               microbatches=mb, steps=steps, losses=res.losses,
+               step_s=res.step_times, ms_per_step=ms,
+               tokens_per_s=batch * seq / (ms / 1e3),
+               launches={kernel: launches[kernel]},
+               launches_per_step={kernel: per_step}, route=route,
+               max_memory_allocated=peak, run_s=seconds,
+               ckpt_save_s=saves[0][1], ckpt_bytes=_dir_bytes(ck),
+               disk_free_bytes=free, stragglers=len(res.straggler_events))
+    shutil.rmtree(ck, ignore_errors=True)
+    return api, shape, ocfg, row, launches[kernel]
+
+
+def _train_idle(api, shape, ocfg, mb) -> dict:
+    """Device idle share of one training step (1 - device busy time from a
+    device-only trace / the wall of the same step unprofiled) and its
+    device operations."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import device_batch
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+    params = api.init_params(0)
+    opt = adamw_init(params)
+    step = make_train_step(api, ocfg, mb)
+    batch = device_batch(api.cfg, shape, 0)
+    wall_us = _timed(lambda: step(params, opt, batch)) * 1e6
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.duration_ns() for e in events) / 1e3
+    by_kind: dict = {}
+    for e in events:
+        kind = _kernel_kind(e.name())
+        us, n = by_kind.get(kind, (0.0, 0))
+        by_kind[kind] = (us + e.duration_ns() / 1e3, n + 1)
+    del params, opt
+    _free()
+    return dict(idle_step_wall_us=wall_us, idle_step_device_busy_us=busy_us,
+                device_idle_share=1.0 - busy_us / wall_us,
+                device_ops_per_step=len(events),
+                device_us_by_kind={k: {"us": us, "ops": n} for k, (us, n)
+                                   in sorted(by_kind.items(),
+                                             key=lambda kv: -kv[1][0])},
+                idle_probe_s=time.perf_counter() - t0)
+
+
+def _kernel_kind(name: str) -> str:
+    """A device operation's family, for a step's time by kind: the flash
+    kernel, cuBLAS / CUTLASS products, copies and fills, reductions, and
+    the elementwise rest."""
+    low = name.lower()
+    for kind, keys in (("flash_attention", ("flash_fwd",)),
+                       ("ssd_scan", ("ssd_",)),
+                       ("matmul", ("gemm", "sm90_xmma", "cutlass", "cublas",
+                                   "splitk", "kernel2")),
+                       ("copy_fill", ("memcpy", "memset", "copy", "fill")),
+                       ("reduce", ("reduce", "softmax", "norm", "cumsum",
+                                   "scan"))):
+        if any(k in low for k in keys):
+            return kind
+    return "elementwise_other"
+
+
+def _function_equal(kernel, shape_args, gen):
+    """The kernel's autograd Function against the plain version at the
+    path shape: the gradients of every input are ``torch.equal``."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    if kernel == "flash_attention":
+        b, s, h, kv, hd = shape_args
+        ins = [torch.randn(sh, generator=gen, device="cuda").to(
+            torch.bfloat16).requires_grad_() for sh in
+            ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd))]
+
+        def run(force):
+            return fops.flash_attention(*ins, causal=True, block_q=512,
+                                        block_k=512, force=force)
+    else:
+        b, l, h, p, g, n, chunk = shape_args
+        x = torch.randn((b, l, h, p), generator=gen, device="cuda")
+        dt = torch.rand((b, l, h), generator=gen, device="cuda") * 0.1
+        dA = -dt * torch.rand((h,), generator=gen, device="cuda")
+        B = torch.randn((b, l, g, n), generator=gen, device="cuda")
+        C = torch.randn((b, l, g, n), generator=gen, device="cuda")
+        ins = [x.to(torch.bfloat16).requires_grad_(), dt.requires_grad_(),
+               dA.requires_grad_(), B.to(torch.bfloat16).requires_grad_(),
+               C.to(torch.bfloat16).requires_grad_()]
+
+        def run(force):
+            return sops.ssd_scan(*ins, chunk=chunk, force=force)
+    out = run(None)
+    outs = out if isinstance(out, tuple) else (out,)
+    cot = [torch.randn(o.shape, generator=gen, device="cuda").to(o.dtype)
+           for o in outs]
+    got = torch.autograd.grad(outs, ins, cot)
+    plain = run("torch")
+    plains = plain if isinstance(plain, tuple) else (plain,)
+    want = torch.autograd.grad(plains, ins, cot)
+    same = [bool(torch.equal(a, b_)) for a, b_ in zip(got, want)]
+    check(all(same), f"{kernel} Function gradients != plain: {same}")
+    out_diff = max(float((o - p).detach().float().abs().max())
+                   for o, p in zip(outs, plains))
+    return dict(shape=list(shape_args), grads_equal=same,
+                forward_max_abs_diff=out_diff)
+
+
+def _with_flash_block(block, fn):
+    with _flash_block(block):
+        return fn()
+
+
+def phase_train(counters: dict) -> dict:
+    """Training on the card (``repro_torch.train``): the main path of its
+    slice, every kernel count set to 0 just before each run and read just
+    after."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config, smoke_reduce
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import device_batch
+    from repro_torch.kernels.ssd_scan.kernel import LAUNCHES_PER_CALL
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import LoopConfig, run_training
+    wrappers, counted = _serve_setup()
+    row: dict = {}
+    tmp_dir = tempfile.TemporaryDirectory(prefix="train_")
+    tmp = tmp_dir.name
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "tinyllama-1.1b", "--reduced", "--steps", "4", "--ckpt-dir",
+         os.path.join(tmp, "cli")], cwd=ROOT, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        # (d) fault tolerance at smoke size, while the CLI child runs
+        t0 = time.perf_counter()
+        arch, seq, batch = TRAIN_FT
+        api = build_model(smoke_reduce(get_config(arch)))
+        shape = ShapeConfig("ft", seq_len=seq, global_batch=batch,
+                            kind="train")
+        ocfg = AdamWConfig(lr_peak=1e-3, warmup_steps=2, total_steps=8)
+        full = run_training(api, shape, ocfg, LoopConfig(
+            steps=8, ckpt_dir=os.path.join(tmp, "ft_a"), ckpt_every=4))
+        lcfg = LoopConfig(steps=8, ckpt_dir=os.path.join(tmp, "ft_b"),
+                          ckpt_every=4)
+        try:
+            run_training(api, shape, ocfg, lcfg, crash_at_step=6)
+            check(False, "the injected crash did not happen")
+        except RuntimeError as e:
+            check("injected crash at step 6" in str(e), str(e))
+        resumed = run_training(api, shape, ocfg, lcfg)
+        check(resumed.resumed_from == 4, f"resumed from "
+              f"{resumed.resumed_from}")
+        check(full.losses[4:] == resumed.losses, f"resumed losses "
+              f"{resumed.losses} != {full.losses[4:]}")
+        row["fault_tolerance"] = dict(
+            arch=arch, seq=seq, batch=batch, losses=full.losses,
+            resumed_losses=resumed.losses, resumed_from=4, equal="exact",
+            seconds=time.perf_counter() - t0)
+        # (e) the CLI
+        out, err = cli.communicate(timeout=300)
+        check(cli.returncode == 0 and "done: steps=4" in out,
+              f"launch.train exit {cli.returncode}: {out[-500:]} "
+              f"{err[-2000:]}")
+        row["cli"] = [ln for ln in out.splitlines() if ln.startswith(
+            ("training", "done:"))]
+
+        # (a) tinyllama-1.1b at full width and depth
+        kernel = "flash_attention"
+        api, shape, ocfg, cell, n = _train_cell("dense", counted, wrappers,
+                                                kernel, tmp)
+        _count(counters, kernel, "train", n)
+        cell.update(_train_idle(api, shape, ocfg, TRAIN_CELLS["dense"][4]))
+        row["dense"] = cell
+        # (b) gradient parity of one microbatch of (a)'s first batch
+        params = api.init_params(0)
+        mb = {k: v[:2] for k, v in device_batch(api.cfg, shape, 0).items()}
+        floor = lambda: _with_flash_block(  # noqa: E731
+            256, lambda: _train_grads(api, params, mb, force="torch"))
+        par = _train_parity(api, params, mb, floor, r"attn/w[qkvo]",
+                            counted, wrappers, kernel,
+                            api.cfg.n_layers * 2)
+        del params
+        _free()
+        cfg32 = api.cfg.with_overrides(dtype="float32", n_layers=4)
+        api32 = build_model(cfg32)
+        params32 = api32.init_params(0)
+        par["f32"] = _train_parity(api32, params32, mb, None,
+                                   r"attn/w[qkvo]", counted, wrappers,
+                                   kernel, cfg32.n_layers * 2)
+        f32 = par["f32"]["kernel_vs_plain"]
+        check(max(f32["loss_rel"], f32["grad_norm_rel"],
+                  f32["layer_rel_max"]) <= TRAIN_F32_REL,
+              f"f32 kernel vs plain beyond {TRAIN_F32_REL}: {f32}")
+        del params32
+        _free()
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        par["function"] = _function_equal(kernel, TRAIN_FLASH_FN, gen)
+        row["dense_parity"] = par
+        _train_band_check("tinyllama-1.1b", par,
+                          TRAIN_BANDS["tinyllama-1.1b"], "attn")
+
+        # (c) mamba2-780m at full width, 8 layers
+        kernel = "ssd_scan"
+        arch = TRAIN_CELLS["ssm"][0]
+        api, shape, ocfg, cell, n = _train_cell("ssm", counted, wrappers,
+                                                kernel, tmp)
+        _count(counters, kernel, "train", n)
+        cell["cuda_launches_per_call"] = LAUNCHES_PER_CALL[cell["route"]]
+        row["ssm"] = cell
+        params = api.init_params(0)
+        mb = device_batch(api.cfg, shape, 0)
+        half = _half_chunk(api)
+        floor = lambda: _train_grads(half, params, mb,  # noqa: E731
+                                     force="torch")
+        par = _train_parity(api, params, mb, floor, r"mamba/", counted,
+                            wrappers, kernel, api.cfg.n_layers * 2)
+        del params
+        _free()
+        ssm = api.cfg.ssm
+        h = ssm.expand * api.cfg.d_model // ssm.head_dim
+        par["function"] = _function_equal(
+            kernel, (*mb["tokens"].shape, h, ssm.head_dim, ssm.n_groups,
+                     ssm.state, ssm.chunk), gen)
+        row["ssm_parity"] = par
+        _train_band_check(arch, par, TRAIN_BANDS[arch], "mixer")
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+        tmp_dir.cleanup()
+        _free()
+    emit("train", **row, bands=TRAIN_BANDS, f32_rel_band=TRAIN_F32_REL,
+         nvidia_smi=nvidia_smi())
+    return row
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4395,6 +4839,7 @@ def _phases(counters: dict) -> dict:
         "serve_hybrid": lambda: phase_serve_hybrid(counters),
         "serve_encdec": lambda: phase_serve_encdec(counters),
         "serve_vlm": lambda: phase_serve_vlm(counters),
+        "train": lambda: phase_train(counters),
     }
 
 
@@ -4504,7 +4949,9 @@ def main(argv=None) -> int:
              "decision_latency_us"],
          service_pool_wall_us_per_step={
              n: v["wall_us_per_step"] for n, v
-             in results["service_pool"]["by_n"].items()})
+             in results["service_pool"]["by_n"].items()},
+         train_ms_per_step={cell: results["train"][cell]["ms_per_step"]
+                            for cell in TRAIN_CELLS})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,9 @@ Guarantees:
 Format: one ``arrays.npz`` (flat name -> ndarray, ``/`` written as
 ``|``) + ``manifest.msgpack`` (step, names, shapes, dtypes, user
 metadata), so either package restores the other's checkpoints of the
-same tree.
+same tree.  A bf16 tensor is stored as the reference stores its bf16
+arrays: raw 2-byte values (numpy ``V2``), dtype ``bfloat16`` in the
+manifest.
 """
 
 from __future__ import annotations
@@ -35,25 +37,42 @@ from repro_torch.utils.tree import flatten_with_names, map_with_names
 _STEP_DIR = re.compile(r"^step_(\d+)$")
 
 
+_BF16_BITS = np.dtype("V2")
+
+
 def _host_copy(x) -> np.ndarray:
-    """A numpy copy of a leaf that later in-place writes cannot reach."""
+    """A numpy copy of a leaf that later in-place writes cannot reach (a
+    bf16 tensor's raw values as ``V2``)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", copy=True).numpy()
+        x = x.detach().to("cpu", copy=True)
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(_BF16_BITS)
+        return x.numpy()
     return np.array(x)
+
+
+def _dtype_name(x, a: np.ndarray) -> str:
+    if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+        return "bfloat16"
+    return str(a.dtype)
 
 
 def _tree_to_flat(tree):
     flat = flatten_with_names(tree)
     names = [n for n, _ in flat]
     arrays = {n: _host_copy(x) for n, x in flat}
-    return names, arrays
+    dtypes = {n: _dtype_name(x, arrays[n]) for n, x in flat}
+    return names, arrays, dtypes
 
 
 def _like(a: np.ndarray, t):
     """The restored array ``a`` as the template leaf ``t`` holds it."""
     if isinstance(t, torch.Tensor):
-        return torch.from_numpy(np.array(a, order="C")).to(
-            device=t.device, dtype=t.dtype)
+        a = np.array(a, order="C")
+        if a.dtype == _BF16_BITS:
+            return torch.from_numpy(a.view(np.int16)).view(
+                torch.bfloat16).to(device=t.device, dtype=t.dtype)
+        return torch.from_numpy(a).to(device=t.device, dtype=t.dtype)
     return a.astype(np.asarray(t).dtype)
 
 
@@ -77,12 +96,12 @@ class CheckpointManager:
     # ------------------------------------------------------------- save
     def save(self, step: int, tree, metadata: dict | None = None,
              blocking: bool = False):
-        names, arrays = _tree_to_flat(tree)
+        names, arrays, dtypes = _tree_to_flat(tree)
         manifest = {
             "step": int(step),
             "names": names,
             "shapes": {n: list(arrays[n].shape) for n in names},
-            "dtypes": {n: str(arrays[n].dtype) for n in names},
+            "dtypes": dtypes,
             "metadata": metadata or {},
         }
 

@@ -17,6 +17,7 @@ import torch
 from repro_torch.core.engine import Workload
 from repro_torch.core.policy import Policy
 from repro_torch.models.transformer import group_size, n_groups
+from repro_torch.utils.tree import map_with_names
 
 _ARRAY_FIELDS = ("prog", "arrival", "k_job", "n_req", "T_true", "C_true",
                  "E_true", "T_pred", "C_pred", "n_nodes")
@@ -85,3 +86,16 @@ def params_from_reference(cfg, tree, device=None):
               for j in range(g)]
     return {"embed": conv(tree["embed"]), "head": conv(tree.get("head", {})),
             "final_norm": conv(tree["final_norm"]), "layers": layers}
+
+
+def opt_state_from_reference(cfg, opt_tree, device=None):
+    """The port's AdamW state from the reference's ``{"master", "m", "v",
+    "step"}`` (numpy leaves): each of the three trees through
+    ``params_from_reference``'s layout map, f32, and ``step`` an int32
+    scalar tensor."""
+    out = {k: map_with_names(lambda _, t: t.float(),
+                             params_from_reference(cfg, opt_tree[k], device))
+           for k in ("master", "m", "v")}
+    out["step"] = torch.tensor(int(np.asarray(opt_tree["step"])),
+                               dtype=torch.int32, device=device)
+    return out

@@ -5,3 +5,6 @@ from repro_torch.data.scenarios import (
     swf_lines, synthetic_swf_arrays, workload_from_arrays,
     workload_from_swf, workload_from_trace,
 )
+from repro_torch.data.synthetic import (
+    EOS, PAD, DataConfig, SyntheticStream, device_batch, host_batch,
+)

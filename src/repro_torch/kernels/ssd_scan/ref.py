@@ -8,6 +8,14 @@ arithmetic is f32, as in the reference: the intra-chunk quadratic term
 (``exp(cum_i - cum_j)`` taken where j <= i and 0 elsewhere), each chunk's
 own state, the recurrence over chunks and the off-diagonal term.
 
+One departure, in the gradient only: the reference takes
+``where(j <= i, exp(cum_i - cum_j), 0)``, whose gradient is 0 * inf = NaN
+wherever exp(cum_i - cum_j) overflows above the diagonal (cum falls by
+more than 88 within a chunk: mamba2-780m's chunk of 256 at its initial
+dt * A); the port masks the exponent first, exp(-inf) = 0.  The forward
+is the same bit for bit; the gradient is the reference's wherever that
+is finite (``tests/test_torch_train.py``).
+
 They live here rather than in ``repro_torch.models.mamba`` (which builds
 ``ssd_chunked`` on ``ssd_chunked_dA``) so that the kernel package never
 imports the models.
@@ -35,10 +43,13 @@ def ssd_chunked_dA(x, dt, dA, B, C, chunk: int):
     Cf = C.float().reshape(b, nc, q, g, n)
     cum = torch.cumsum(dAf, dim=2)                              # [b,nc,q,h]
 
-    # intra-chunk: L[i, j] = exp(cum_i - cum_j) for i >= j, else 0
+    # intra-chunk: L[i, j] = exp(cum_i - cum_j) for i >= j, else 0; the
+    # exponent is masked before exp, so the masked entries' gradient is 0
+    # where exp(cum_i - cum_j) overflows (j > i) instead of 0 * inf
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # [b,nc,i,j,h]
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
-    L = torch.where(tri[None, None, :, :, None], torch.exp(diff), 0.0)
+    L = torch.exp(torch.where(tri[None, None, :, :, None], diff,
+                              float("-inf")))
     S = torch.einsum("bcign,bcjgn->bcijg", Cf, Bf)
     S = S.repeat_interleave(rep, dim=-1)                        # [b,nc,i,j,h]
     y_diag = torch.einsum("bcijh,bcjhp->bcihp", S * L * dtf[:, :, None], xf)

@@ -20,6 +20,12 @@ API has no function that fills it (``init_decode_cache`` gives zeros).
 A caller fills it from ``encode``'s output through each decoder layer's
 ``xattn`` K/V projection (``attention.attn_forward(..., kv_x=enc_out,
 return_kv=True)``).
+
+``train_loss`` runs ``encode``, ``decode_forward`` and
+``transformer.chunked_xent`` (aux 0); with ``cfg.remat_policy`` other
+than "none" each encoder and decoder layer runs under the checkpoint
+(``transformer.remat``; the reference's ``jax.checkpoint`` of each
+scanned layer saves nothing, so the port's is "nothing_saveable").
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 
 MAX_DEC_POSITIONS = 32_768
 
@@ -76,35 +83,67 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     }
 
 
-def encode(cfg: ModelConfig, params, frame_embeds, *, force=None):
+def _enc_layer(cfg, lp, x, force):
+    h = L.apply_norm(lp["norm1"], x, cfg)
+    x = x + A.attn_forward(lp["attn"], h, cfg, causal=False, use_rope=False,
+                           force=force)
+    h = L.apply_norm(lp["norm_mlp"], x, cfg)
+    return x + L.apply_mlp(lp["mlp"], h, cfg)
+
+
+def _dec_layer(cfg, lp, x, enc_out, force):
+    h = L.apply_norm(lp["norm1"], x, cfg)
+    x = x + A.attn_forward(lp["attn"], h, cfg, causal=True, use_rope=False,
+                           force=force)
+    h = L.apply_norm(lp["norm_x"], x, cfg)
+    x = x + A.attn_forward(lp["xattn"], h, cfg, causal=False,
+                           use_rope=False, kv_x=enc_out, force=force)
+    h = L.apply_norm(lp["norm_mlp"], x, cfg)
+    return x + L.apply_mlp(lp["mlp"], h, cfg)
+
+
+def _policy(remat_layers: bool) -> str:
+    return "nothing_saveable" if remat_layers else "none"
+
+
+def encode(cfg: ModelConfig, params, frame_embeds, *, force=None,
+           remat_layers=False):
     """frame_embeds [b, encoder_seq, d] -> the encoder's normed output
     [b, encoder_seq, d] in the config's dtype."""
     x = frame_embeds.to(_dtype(cfg)) + params["enc_pos"]
+    layer = T.remat(_enc_layer, _policy(remat_layers))
     for lp in params["enc_layers"]:
-        h = L.apply_norm(lp["norm1"], x, cfg)
-        x = x + A.attn_forward(lp["attn"], h, cfg, causal=False,
-                               use_rope=False, force=force)
-        h = L.apply_norm(lp["norm_mlp"], x, cfg)
-        x = x + L.apply_mlp(lp["mlp"], h, cfg)
+        x = layer(cfg, lp, x, force)
     return L.apply_norm(params["enc_final_norm"], x, cfg)
 
 
 def decode_forward(cfg: ModelConfig, params, tokens, enc_out, *,
-                   force=None):
+                   force=None, remat_layers=False):
     """The decoder over tokens [b, s] against ``enc_out``: the normed
     stream [b, s, d]."""
     x = L.embed_tokens(params["embed"], tokens, cfg)
     x = x + params["dec_pos"][:tokens.shape[1]]
+    layer = T.remat(_dec_layer, _policy(remat_layers))
     for lp in params["dec_layers"]:
-        h = L.apply_norm(lp["norm1"], x, cfg)
-        x = x + A.attn_forward(lp["attn"], h, cfg, causal=True,
-                               use_rope=False, force=force)
-        h = L.apply_norm(lp["norm_x"], x, cfg)
-        x = x + A.attn_forward(lp["xattn"], h, cfg, causal=False,
-                               use_rope=False, kv_x=enc_out, force=force)
-        h = L.apply_norm(lp["norm_mlp"], x, cfg)
-        x = x + L.apply_mlp(lp["mlp"], h, cfg)
+        x = layer(cfg, lp, x, enc_out, force)
     return L.apply_norm(params["dec_final_norm"], x, cfg)
+
+
+def train_loss(cfg: ModelConfig, params, batch, *, force=None):
+    """``batch``: frame_embeds [b, F, d], tokens, labels, mask [b, s].
+    Returns (loss, {"loss", "aux": 0, "tokens"}), f32 scalars."""
+    remat_layers = cfg.remat_policy != "none"
+    enc_out = encode(cfg, params, batch["frame_embeds"], force=force,
+                     remat_layers=remat_layers)
+    x = decode_forward(cfg, params, batch["tokens"], enc_out, force=force,
+                       remat_layers=remat_layers)
+    nll, cnt = T.chunked_xent(cfg, params, x, batch["labels"],
+                              batch["mask"])
+    loss = nll / torch.clamp(cnt, min=1.0)
+    return loss, {"loss": loss,
+                  "aux": torch.zeros((), dtype=torch.float32,
+                                     device=x.device),
+                  "tokens": cnt}
 
 
 def prefill(cfg: ModelConfig, params, batch, *, force=None):

@@ -69,7 +69,7 @@ def _counts(flat, n: int):
         0, flat, torch.ones_like(flat))
 
 
-def _f32_bmm(a, w):
+def _f32_product(a, w):
     """[E, C, k] @ [E, k, n] as an f32 result: the exact products (two
     bf16 values multiply exactly in f32) summed in f32 -- for a CUDA bf16
     pair by cuBLAS's f32-output bf16 product, which reads the bf16 weights
@@ -77,6 +77,36 @@ def _f32_bmm(a, w):
     if a.is_cuda and a.dtype == torch.bfloat16:
         return torch.bmm(a, w, out_dtype=torch.float32)
     return torch.bmm(a.float(), w.float())
+
+
+class _F32Bmm(torch.autograd.Function):
+    """``_f32_product`` with its gradient, which autograd lacks for
+    ``bmm``'s ``out_dtype``: each operand's gradient is the f32 product of
+    the f32 cotangent and the other operand widened, rounded once to the
+    operand's dtype -- the transpose XLA takes of the reference's
+    ``preferred_element_type=f32`` einsum."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        return _f32_product(a, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        ga = gw = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(g, w.float().transpose(1, 2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = torch.bmm(a.float().transpose(1, 2), g).to(w.dtype)
+        return ga, gw
+
+
+def _f32_bmm(a, w):
+    """``_f32_product``, through ``_F32Bmm`` while autograd records."""
+    if torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
+        return _F32Bmm.apply(a, w)
+    return _f32_product(a, w)
 
 
 def route(p, xs, cfg: ModelConfig):

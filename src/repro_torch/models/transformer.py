@@ -15,15 +15,29 @@ layer (``attn``) or a Mamba-2 mixer (``mamba``), then, when ``d_ff > 0``,
 The decode cache holds each layer's kind: keys and values for the
 attention layers only, conv buffers and SSD states for the Mamba-2
 layers only, each stacked over the layers of its kind.
-``train_loss`` and ``chunked_xent`` wait for the training slice (ROADMAP
-Queue 1 item 14e).
+
+Training: ``train_loss`` is the mean next-token cross-entropy over the
+mask (``chunked_xent``, chunk by chunk over the sequence so the [b, s, V]
+f32 logits never exist at once) plus ``AUX_LOSS_COEF`` times the MoE
+layers' load-balance loss, summed group by group in layer order as the
+reference's scan does.  Remat: with ``cfg.remat_policy`` other than
+"none" each layer runs under ``torch.utils.checkpoint.checkpoint``
+(non-reentrant), the reference's ``jax.checkpoint`` of each group:
+"nothing_saveable" keeps only the layer's input and recomputes the rest
+in the backward; "dots" (``dots_with_no_batch_dims_saveable``) is the
+selective checkpoint that keeps the outputs of ``aten.mm`` (the products
+without batch dims) and recomputes everything else.  Remat changes
+memory, never values.
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -31,6 +45,9 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as S
 from repro_torch.models import moe as M
+
+AUX_LOSS_COEF = 0.01
+XENT_CHUNK = 512
 
 
 def group_size(cfg: ModelConfig) -> int:
@@ -113,28 +130,70 @@ def _use_rope(cfg: ModelConfig) -> bool:
 
 
 def _ffn(cfg, lp, x):
-    """x plus the layer's MLP or MoE FFN (the MoE's aux loss is not used
-    in serving)."""
+    """x plus the layer's MLP or MoE FFN, and the MoE's aux loss (None
+    for a layer without one)."""
     if not _has_ffn(cfg):
-        return x
+        return x, None
     h = L.apply_norm(lp["norm2"], x, cfg)
     if "moe" in lp:
-        return x + M.apply_moe(lp["moe"], h, cfg)[0]
-    return x + L.apply_mlp(lp["mlp"], h, cfg)
+        out, aux = M.apply_moe(lp["moe"], h, cfg)
+        return x + out, aux
+    return x + L.apply_mlp(lp["mlp"], h, cfg), None
 
 
-def backbone(cfg: ModelConfig, params, x, *, force=None):
+def _layer(cfg, lp, x, force):
+    """One layer (mixer, then FFN): (x, aux or None)."""
+    h = L.apply_norm(lp["norm1"], x, cfg)
+    if "attn" in lp:
+        h = A.attn_forward(lp["attn"], h, cfg, use_rope=_use_rope(cfg),
+                           force=force)
+    else:
+        h = S.mamba_forward(lp["mamba"], h, cfg, force=force)
+    return _ffn(cfg, lp, x + h)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep products without batch dims (``aten.mm``),
+    recompute the rest."""
+    if op == torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn, policy: str):
+    """``fn`` run under the checkpoint of remat ``policy`` ("none":
+    ``fn`` itself)."""
+    if policy == "none":
+        return fn
+    if policy == "nothing_saveable":
+        return partial(checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return partial(checkpoint, fn, use_reentrant=False,
+                       context_fn=partial(create_selective_checkpoint_contexts,
+                                          _save_dots))
+    raise ValueError(f"unknown remat policy {policy!r}")
+
+
+def backbone(cfg: ModelConfig, params, x, *, force=None, remat_layers=False):
     """The layers over a [b, s, d] stream (before the final norm).
-    ``force`` goes to the flash or SSD scan dispatch of every layer."""
-    for lp in params["layers"]:
-        h = L.apply_norm(lp["norm1"], x, cfg)
-        if "attn" in lp:
-            h = A.attn_forward(lp["attn"], h, cfg, use_rope=_use_rope(cfg),
-                               force=force)
-        else:
-            h = S.mamba_forward(lp["mamba"], h, cfg, force=force)
-        x = _ffn(cfg, lp, x + h)
-    return x
+    Returns (x, aux: the MoE layers' aux losses, an f32 scalar, summed
+    within each group and then over the groups).  ``force`` goes to the
+    flash or SSD scan dispatch of every layer; ``remat_layers`` runs each
+    layer under the checkpoint of ``cfg.remat_policy``."""
+    layer = partial(_layer, cfg)
+    if remat_layers:
+        layer = remat(layer, cfg.remat_policy)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    g = group_size(cfg)
+    for i, lp in enumerate(params["layers"]):
+        if i % g == 0:
+            aux_g = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux_j = layer(lp, x, force)
+        if aux_j is not None:
+            aux_g = aux_g + aux_j
+        if i % g == g - 1:
+            aux = aux + aux_g
+    return x, aux
 
 
 def embed_inputs(cfg: ModelConfig, params, batch):
@@ -147,6 +206,50 @@ def embed_inputs(cfg: ModelConfig, params, batch):
     return x
 
 
+def chunked_xent(cfg: ModelConfig, params, x, labels, mask,
+                 chunk=XENT_CHUNK):
+    """Sequence-chunked softmax cross-entropy, chunk by chunk as the
+    reference's scan: f32 logits of one chunk at a time, the max
+    subtracted without its gradient, the gold logit gathered.  x:
+    [b, s, d]; labels, mask: [b, s] (a single chunk if ``s % chunk``).
+    Returns (sum_nll, sum_cnt), f32 scalars."""
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        chunk = s
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, s, chunk):
+        xs = x[:, lo:lo + chunk]
+        ls = labels[:, lo:lo + chunk].long()
+        ms = mask[:, lo:lo + chunk].float()
+        logits = L.lm_logits(params["embed"], params["head"], xs, cfg)
+        lf = logits - logits.amax(-1, keepdim=True).detach()
+        logz = torch.log(torch.exp(lf).sum(-1))
+        gold = torch.gather(lf, -1, ls[..., None])[..., 0]
+        nll = nll + ((logz - gold) * ms).sum()
+        cnt = cnt + ms.sum()
+    return nll, cnt
+
+
+def train_loss(cfg: ModelConfig, params, batch, *, force=None):
+    """``batch``: tokens, labels, mask [b, s] (and ``patch_embeds`` for a
+    VLM, whose positions are sliced off before the loss).  Returns (loss
+    + AUX_LOSS_COEF * aux, {"loss", "aux", "tokens"}), f32 scalars.
+    ``force`` goes to the flash or SSD scan dispatch."""
+    x = embed_inputs(cfg, params, batch)
+    n_prefix = x.shape[1] - batch["tokens"].shape[1]
+    x, aux = backbone(cfg, params, x, force=force,
+                      remat_layers=cfg.remat_policy != "none")
+    x = L.apply_norm(params["final_norm"], x, cfg)
+    if n_prefix:
+        x = x[:, n_prefix:]
+    nll, cnt = chunked_xent(cfg, params, x, batch["labels"], batch["mask"])
+    loss = nll / torch.clamp(cnt, min=1.0)
+    return loss + AUX_LOSS_COEF * aux, {"loss": loss, "aux": aux,
+                                        "tokens": cnt}
+
+
 # ---------------------------------------------------------------- serving
 
 def prefill(cfg: ModelConfig, params, batch, *, force=None):
@@ -155,7 +258,7 @@ def prefill(cfg: ModelConfig, params, batch, *, force=None):
     for a VLM).  ``force`` (None | 'cuda' | 'torch') picks how the flash
     branch or the SSD scan runs."""
     x = embed_inputs(cfg, params, batch)
-    x = backbone(cfg, params, x, force=force)
+    x, _ = backbone(cfg, params, x, force=force)
     x = L.apply_norm(params["final_norm"], x[:, -1:], cfg)
     return L.lm_logits(params["embed"], params["head"], x, cfg)[:, 0]
 
@@ -206,6 +309,6 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int):
                                             cache["state"][j])
             cache["conv"][j].copy_(conv)
             cache["state"][j].copy_(state)
-        x = _ffn(cfg, lp, x + h)
+        x, _ = _ffn(cfg, lp, x + h)
     x = L.apply_norm(params["final_norm"], x, cfg)
     return L.lm_logits(params["embed"], params["head"], x, cfg)[:, 0], cache

@@ -361,3 +361,45 @@ def test_service_pool_runs_on_cpu_and_defaults_to_cuda(case, capsys,
         w = make_npb_workload(JSCC_SYSTEMS)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             SessionPool.replicate(Scheduler(), 2, w)
+
+
+def test_training_loads_no_jax_and_never_falls_back(monkeypatch, tmp_path):
+    """The training modules (the synthetic stream, the optimizer, the step
+    and loop, the launcher) load no JAX or ``repro`` module; the model's
+    ``train_loss``, ``device_batch``, the stream and ``launch.train``
+    default to CUDA and raise without a card."""
+    code = ("import sys\n"
+            "import repro_torch.data.synthetic, repro_torch.optim\n"
+            "import repro_torch.train, repro_torch.launch.train\n"
+            "import repro_torch.kernels.autograd\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    from repro_torch.configs import get_config, smoke_reduce
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticStream, device_batch
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    small = smoke_reduce(get_config("tinyllama-1.1b"))
+    shape = ShapeConfig("t", seq_len=16, global_batch=2, kind="train")
+    api = build_model(small, device="cpu")
+    loss, metrics = api.train_loss(api.init_params(0),
+                                   device_batch(small, shape, 0, "cpu"))
+    assert loss.device.type == "cpu" and sorted(metrics) == [
+        "aux", "loss", "tokens"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for cfg in (get_config("tinyllama-1.1b"), small):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_model(cfg).train_loss
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        device_batch(small, shape, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SyntheticStream(small, shape)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "tinyllama-1.1b", "--reduced", "--steps", "1",
+                    "--ckpt-dir", str(tmp_path)])
+    assert not os.listdir(tmp_path)
