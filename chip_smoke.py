@@ -230,7 +230,14 @@ Phases, each printing one JSON line:
                llama4-scout-17b-a16e at full width, depth cut to 4 (16
                experts top-1, 10,374,067,200 parameters): the prefill
                launches flash 4 times, the same checks, the greedy decode
-               on the depth-cut config
+               on the depth-cut config.  Per-shard MoE dispatch: moonshot's
+               [16, 2,048] prefill under ``use_rules(
+               make_production_mesh(), lm_rules(False))`` (16 data shards,
+               each bucketed on its own; s = 2,048 is the least that takes
+               the flash branch): flash 48 times, the kernel route against
+               ``force="torch"`` in the band beside its floor, routing
+               flips, and the drops per layer against the same prompt in
+               one shard
   serve_hybrid jamba-v0.1-52b at full width, one 8-layer group
                (13,267,656,416 parameters): the 2 x 4,096 prefill calls
                the SSD scan 7 times and flash once (tensor-core routes),
@@ -278,7 +285,29 @@ Phases, each printing one JSON line:
                resume: the losses of steps 4-7 equal; (e)
                ``python -m repro_torch.launch.train --arch tinyllama-1.1b
                --reduced --steps 4`` prints its ``done:`` line (a child
-               process beside (d))
+               process beside (d)), and ``examples/torch_serve_demo.py``
+               and ``examples/torch_train_smoke.py`` (crash at step 20,
+               resume from 20, the loss falls) in two more; (f) data
+               parallel training (``train.dp``) of (a)'s model on a
+               (pod, data) = (2, 2) mesh of the card, (a)'s batch one
+               sequence a shard, 3 steps with int8 error-feedback
+               cross-pod compression: finite losses, flash 22 x 2 x 4 a
+               step, ms a step, tokens/s, peak memory, per-pod residuals
+               that differ after step 1, the idle share of a step, the
+               device ms of a pod's ``pmean`` and of the compressed
+               reduction (device-only traces on one shard's gradient)
+               against their byte bounds, and one step with the kernels
+               against ``force="torch"`` (loss, pod 0's pre-compression
+               gradient norm and attention gradients in (b)'s bands,
+               beside the floor); (g) the reference's compressed toy
+               (``tests/test_dp_compressed.py``) on a (2, 4) mesh, 150
+               steps: final loss under 0.01 and within 0.01 of the
+               uncompressed run; (h) smoke-size moonshot-v1-16b-a3b (2
+               layers, f32) trained under ``use_rules`` with 2 dispatch
+               shards: loss, aux and gradients with per-layer remat
+               (whose recompute runs on autograd's device thread) within
+               1e-5 relative of the run without remat, and aux not the
+               one-shard run's
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -4140,6 +4169,9 @@ def phase_serve_moe(counters: dict) -> dict:
                    capacity=_moe_capacity(cfg, tokens.numel()),
                    prompt=list(tokens.shape),
                    prefill_tokens_per_s=tokens.numel() / pre["prefill_s"])
+        if arch == MOE_SHARDED[0]:
+            row["sharded_dispatch"] = _moe_sharded(api, params, counted,
+                                                   wrappers, tc, counters)
         if layers is not None:
             # the depth-cut config's decode (serve.main builds the full
             # one): 31 greedy steps
@@ -4175,6 +4207,51 @@ def phase_serve_moe(counters: dict) -> dict:
         out[arch] = row
     emit("serve_moe", cells=out, nvidia_smi=nvidia_smi())
     return out
+
+
+#: per-shard MoE dispatch: the arch and its prefill [b, s] under the
+#: single-pod production rules (dp_shards 16 divides b; s = 2,048, the
+#: least that takes the flash branch)
+MOE_SHARDED = ("moonshot-v1-16b-a3b", (16, 2048))
+
+
+def _moe_sharded(api, params, counted, wrappers, routes, counters) -> dict:
+    """The prefill under ``use_rules(make_production_mesh(),
+    lm_rules(False))``: every MoE layer buckets its tokens in 16 data
+    shards (each shard's sort, capacity and drops its own), the kernel
+    route against ``force="torch"`` in the phase's band beside its floor,
+    and the drops per layer against the same prefill in one shard."""
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.moe import moe_capacity
+    from repro_torch.sharding import lm_rules, use_rules
+    cfg = api.cfg
+    tokens = _tokens(cfg, MOE_SHARDED[1], seed=2)
+    batch = {"tokens": tokens}
+    with _moe_routes() as one:
+        counted(lambda: api.prefill(params, batch))
+    rules = lm_rules(False)
+    n = rules["dp_shards"]
+    with use_rules(make_production_mesh(device=api.device), rules), \
+            _moe_routes() as rec:
+        _, row = _family_prefill(api, params, batch, counted, wrappers,
+                                 {"flash_attention": cfg.n_layers}, routes,
+                                 floor="flash")
+    _count(counters, "flash_attention", "serve_moe.sharded", cfg.n_layers)
+    keep = rec["keep"][:len(one["keep"])]           # the kernel run's
+    t_loc = tokens.numel() // n
+    check(all(k.shape == (n, t_loc * cfg.moe.top_k) for k in keep),
+          f"sharded dispatch kept masks {[tuple(k.shape) for k in keep]}")
+    one_drops = [int((~k).sum()) for k in one["keep"]]
+    row.update(dp_shards=n, prompt=list(tokens.shape),
+               capacity_per_shard=moe_capacity(t_loc, cfg),
+               capacity_one_shard=moe_capacity(tokens.numel(), cfg),
+               dropped_one_shard_by_layer=one_drops,
+               dropped_total=sum(row["dropped_by_layer"]),
+               dropped_one_shard_total=sum(one_drops),
+               layers_with_other_drops=sum(
+                   a != b for a, b in zip(row["dropped_by_layer"],
+                                          one_drops)))
+    return row
 
 
 def _moe_capacity(cfg, tokens):
@@ -4575,11 +4652,7 @@ def _train_cell(cell, counted, wrappers, kernel, tmp):
 
 
 def _train_idle(api, shape, ocfg, mb) -> dict:
-    """Device idle share of one training step (1 - device busy time from a
-    device-only trace / the wall of the same step unprofiled) and its
-    device operations."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """``_step_idle`` of one ``make_train_step`` step of (a)."""
     from repro_torch.data import device_batch
     from repro_torch.optim import adamw_init
     from repro_torch.train import make_train_step
@@ -4587,10 +4660,22 @@ def _train_idle(api, shape, ocfg, mb) -> dict:
     opt = adamw_init(params)
     step = make_train_step(api, ocfg, mb)
     batch = device_batch(api.cfg, shape, 0)
-    wall_us = _timed(lambda: step(params, opt, batch)) * 1e6
+    row = _step_idle(lambda: step(params, opt, batch))
+    del params, opt
+    _free()
+    return row
+
+
+def _step_idle(fn) -> dict:
+    """Device idle share of one training step ``fn()`` (1 - device busy
+    time from a device-only trace / the wall of the same step
+    unprofiled) and its device operations by kind."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    wall_us = _timed(fn) * 1e6
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        step(params, opt, batch)
+        fn()
         torch.cuda.synchronize()
     events = [e for e in prof.profiler.kineto_results.events()
               if e.device_type() == torch.autograd.DeviceType.CUDA]
@@ -4600,8 +4685,6 @@ def _train_idle(api, shape, ocfg, mb) -> dict:
         kind = _kernel_kind(e.name())
         us, n = by_kind.get(kind, (0.0, 0))
         by_kind[kind] = (us + e.duration_ns() / 1e3, n + 1)
-    del params, opt
-    _free()
     return dict(idle_step_wall_us=wall_us, idle_step_device_busy_us=busy_us,
                 device_idle_share=1.0 - busy_us / wall_us,
                 device_ops_per_step=len(events),
@@ -4672,6 +4755,294 @@ def _function_equal(kernel, shape_args, gen):
                 forward_max_abs_diff=out_diff)
 
 
+#: part (f): tinyllama-1.1b's (a) weights and global batch (4 x 4,096) on
+#: a (pod, data) mesh of the one card, one sequence a shard, compressed
+#: cross-pod reduction
+TRAIN_DP_MESH = (2, 2)
+TRAIN_DP_STEPS = 3
+#: part (g): the reference's toy (tests/test_dp_compressed.py) on (2, 4)
+TRAIN_TOY_MESH = (2, 4)
+TRAIN_TOY_STEPS = 150
+#: the two LM examples, run as children beside (d) and (e): argv, the
+#: lines their output must hold
+TRAIN_EXAMPLES = {
+    "serve_demo": (["examples/torch_serve_demo.py"],
+                   ("decoded 16 tokens x batch 4",)),
+    "train_smoke": (["examples/torch_train_smoke.py"],
+                    ("injected crash at step 20", "steps=30 resumed_from=20",
+                     "loss: ")),
+}
+
+
+def _examples_start(env) -> dict:
+    return {name: subprocess.Popen(
+        [sys.executable, *argv], cwd=ROOT, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for name, (argv, _) in TRAIN_EXAMPLES.items()}
+
+
+def _examples_join(kids) -> dict:
+    """Each example's exit, its lines checked; its output lines."""
+    out = {}
+    for name, kid in kids.items():
+        stdout, stderr = kid.communicate(timeout=300)
+        want = TRAIN_EXAMPLES[name][1]
+        check(kid.returncode == 0 and all(w in stdout for w in want),
+              f"examples/torch_{name}.py exit {kid.returncode}: "
+              f"{stdout[-800:]} {stderr[-2000:]}")
+        out[name] = [ln for ln in stdout.splitlines() if ln.strip()][:8]
+    return out
+
+
+def _dp_step(api, mesh, ocfg, force=None):
+    from repro_torch.train import make_dp_train_step
+    return make_dp_train_step(
+        lambda p, b: api.train_loss(p, b, force=force)[0], mesh, ocfg,
+        stacked=api.stacked_name)
+
+
+def _dp_run(step, params, opt, err, batch, pattern):
+    """One data-parallel step, recording pod 0's intra-pod-reduced
+    gradients before the compression: (the step's outputs, the record
+    {"loss", "grads": the leaves matching ``pattern``, "norm": their
+    global norm, "step_norm": the step's post-compression norm})."""
+    import re
+    import torch
+    from repro_torch.train import dp
+    from repro_torch.utils.tree import flatten_with_names
+    real, rec = dp.compressed_psum, {}
+
+    def capture(grads, *a, **kw):
+        flat = flatten_with_names(grads[0])
+        rec["norm"] = float(torch.sqrt(sum(torch.sum(g.float() ** 2)
+                                           for _, g in flat)))
+        rec["grads"] = {n: g.clone() for n, g in flat
+                        if re.match(r"layers/\d+/" + pattern, n)}
+        return real(grads, *a, **kw)
+    dp.compressed_psum = capture
+    try:
+        out = step(params, opt, err, batch)
+    finally:
+        dp.compressed_psum = real
+    rec.update(loss=out[3], step_norm=float(out[4]))
+    return out, rec
+
+
+def _dp_parity(api, mesh, ocfg, params, opt, err, batch, kernel_rec,
+               counted, pattern):
+    """The first data-parallel step with the kernels (``kernel_rec``, from
+    ``_dp_run``) against the same step under ``force="torch"`` and its
+    floor (plain at flash block 256): the loss, pod 0's pre-compression
+    gradients (global norm, per-layer ``pattern`` leaves) for (b)'s
+    bands, and the step's post-compression gradient norms beside them."""
+    (_, plain), t_p, p_launches = counted(lambda: _dp_run(
+        _dp_step(api, mesh, ocfg, "torch"), params, opt, err, batch,
+        pattern))
+    check(not any(p_launches.values()), f"force='torch' launched "
+          f"{p_launches}")
+    with _flash_block(256):
+        _, floor = _dp_run(_dp_step(api, mesh, ocfg, "torch"), params, opt,
+                           err, batch, pattern)
+
+    def diffs(a):
+        row = _grad_diffs((a["loss"], a["grads"]),
+                          (plain["loss"], plain["grads"]), pattern)
+        row.update(grad_norm=a["norm"], grad_norm_rel=abs(
+            a["norm"] - plain["norm"]) / plain["norm"],
+            step_grad_norm=a["step_norm"], step_grad_norm_rel=abs(
+                a["step_norm"] - plain["step_norm"]) / plain["step_norm"])
+        return row
+    return dict(kernel_vs_plain=diffs(kernel_rec),
+                floor_vs_plain=diffs(floor), plain_s=t_p)
+
+
+def _dp_pieces(api, mesh, params, batch, err) -> dict:
+    """Device ms of the data-parallel step's reductions, each from a trace
+    of the device alone on one shard's real gradient: a pod's intra-pod
+    ``pmean`` of ``data`` members and the compressed cross-pod
+    reduction over ``pod`` members (with the run's per-pod residuals);
+    their bounds (each input read once, each output written once)."""
+    from repro_torch.optim import compressed_psum
+    from repro_torch.train import dp
+    from repro_torch.train.step import value_and_grad
+    n_pod, n_data = mesh.devices.shape
+    rows = batch["tokens"].shape[0] // mesh.size
+    _, _, g = value_and_grad(api, params,
+                             {k: v[:rows] for k, v in batch.items()})
+    n = sum(t.numel() for t in _leaves(params))
+    pod = dp.pmean([g] * n_data)
+    intra_us = _device_busy_us(lambda: dp.pmean([g] * n_data))
+    comp_us = _device_busy_us(lambda: compressed_psum(
+        [pod] * n_pod, err, api.stacked_name))
+    check(intra_us is not None and comp_us is not None,
+          "the reductions' device trace is empty")
+    # bf16 members in, the bf16 mean out; bf16 pod means and f32
+    # residuals in, the f32 mean and the new residuals out
+    intra_b = n * 2 * (n_data + 1)
+    comp_b = n * (n_pod * (2 + 4 + 4) + 4)
+    return dict(params=n, intra_pod_pmean_device_ms=intra_us / 1e3,
+                intra_pod_pmean_per_step_ms=n_pod * intra_us / 1e3,
+                intra_pod_bound_ms=intra_b / HBM_BYTES_PER_S * 1e3,
+                compressed_psum_device_ms=comp_us / 1e3,
+                compressed_psum_bound_ms=comp_b / HBM_BYTES_PER_S * 1e3,
+                compressed_psum_bytes_bound=comp_b,
+                reductions_per_step_device_ms=(n_pod * intra_us + comp_us)
+                / 1e3)
+
+
+def _train_dp(api, shape, ocfg, counted, wrappers, kernel, counters) -> dict:
+    """Part (f): data-parallel training at full width (``train.dp``)."""
+    import torch
+    from repro_torch.data import device_batch
+    from repro_torch.launch.mesh import _make_mesh
+    from repro_torch.train import init_dp_state
+    mesh = _make_mesh(TRAIN_DP_MESH, ("pod", "data"), api.device)
+    per_step = api.cfg.n_layers * 2 * mesh.size
+    step = _dp_step(api, mesh, ocfg)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(0)
+    opt, err = init_dp_state(params)
+    losses, times, launched = [], [], 0
+    pods_differ = kernel_rec = None
+    pattern = r"attn/w[qkvo]"
+    for i in range(TRAIN_DP_STEPS):
+        batch = device_batch(api.cfg, shape, i, api.device)
+        if i == 0:       # the parity's kernel step: its gradients recorded
+            (out, kernel_rec), sec, launches = counted(
+                lambda: _dp_run(step, params, opt, err, batch, pattern))
+        else:
+            out, sec, launches = counted(
+                lambda: step(params, opt, err, batch))
+        params, opt, err, loss, _ = out
+        del out
+        check(launches == {**dict.fromkeys(wrappers, 0), kernel: per_step},
+              f"data-parallel step {i} launched {launches}, expected "
+              f"{per_step} {kernel}")
+        launched += launches[kernel]
+        losses.append(float(loss))
+        times.append(sec)
+        if i == 0:
+            pods_differ = sum(int((a != b).sum()) for a, b in zip(
+                _leaves(err[0]), _leaves(err[1])))
+    peak = torch.cuda.max_memory_allocated()
+    check(all(map(math.isfinite, losses)), f"data-parallel losses {losses}")
+    check(isinstance(err, list) and len(err) == TRAIN_DP_MESH[0]
+          and pods_differ > 0, f"err_state after step 1: "
+          f"{pods_differ} elements differ between the pods")
+    _count(counters, kernel, "train.dp", launched)
+    ms = sum(times[1:]) / len(times[1:]) * 1e3
+    tokens = shape.global_batch * shape.seq_len
+    row = dict(mesh=dict(zip(("pod", "data"), TRAIN_DP_MESH)),
+               shard_batch=[shape.global_batch // mesh.size, shape.seq_len],
+               steps=TRAIN_DP_STEPS, losses=losses, step_s=times,
+               ms_per_step=ms, tokens_per_s=tokens / (ms / 1e3),
+               launches={kernel: launched},
+               launches_per_step={kernel: per_step},
+               route=wrappers[kernel].last_route, max_memory_allocated=peak,
+               err_elements_differing_between_pods=pods_differ)
+    check(row["route"] == "tensor-core", f"data-parallel route "
+          f"{row['route']}")
+    batch = device_batch(api.cfg, shape, 0, api.device)
+    row.update(_dp_pieces(api, mesh, params, batch, err))
+    row.update(_step_idle(lambda: step(params, opt, err, batch)))
+    del params, opt, err
+    _free()
+    # the first step again from (a)'s init, under force="torch"
+    params = api.init_params(0)
+    opt, err = init_dp_state(params)
+    par = _dp_parity(api, mesh, ocfg, params, opt, err, batch, kernel_rec,
+                     counted, pattern)
+    par["kernel_s"] = times[0]
+    del params, opt, err, kernel_rec
+    _free()
+    _train_band_check("tinyllama-1.1b data-parallel", par,
+                      TRAIN_BANDS["tinyllama-1.1b"], "attn")
+    row["parity"] = par
+    return row
+
+
+def _train_toy(dev="cuda") -> dict:
+    """Part (g): the reference's least-squares test of the compressed
+    trainer (``tests/test_dp_compressed.py``) on the card."""
+    import torch
+    from repro_torch.launch.mesh import _make_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_dp_state, make_dp_train_step
+    mesh = _make_mesh(TRAIN_TOY_MESH, ("pod", "data"), dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w_true = torch.randn((16, 32), generator=gen, device=dev) * 0.5
+    ocfg = AdamWConfig(lr_peak=3e-2, warmup_steps=5,
+                       total_steps=TRAIN_TOY_STEPS, weight_decay=0.0)
+
+    def loss_fn(p, b):
+        return torch.mean((b["x"] @ p["w"] - b["y"]) ** 2)
+    losses, seconds = {}, {}
+    for compress in (False, True):
+        t0 = time.perf_counter()
+        p = {"w": torch.zeros((16, 32), device=dev)}
+        opt, err = init_dp_state(p)
+        step = make_dp_train_step(loss_fn, mesh, ocfg,
+                                  compress_cross_pod=compress)
+        data = torch.Generator(device=dev).manual_seed(1)
+        for _ in range(TRAIN_TOY_STEPS):
+            x = torch.randn((64, 16), generator=data, device=dev)
+            y = x @ w_true + 0.01 * torch.randn((64, 32), generator=data,
+                                                device=dev)
+            p, opt, err, loss, _ = step(p, opt, err, {"x": x, "y": y})
+        losses[compress] = float(loss)
+        seconds[compress] = time.perf_counter() - t0
+    check(losses[True] < 0.01 and abs(losses[True] - losses[False]) < 0.01,
+          f"compressed data-parallel toy: {losses}")
+    return dict(mesh=list(TRAIN_TOY_MESH), steps=TRAIN_TOY_STEPS,
+                final_loss={"compressed": losses[True],
+                            "uncompressed": losses[False]},
+                seconds={"compressed": seconds[True],
+                         "uncompressed": seconds[False]})
+
+
+def _train_moe_rules() -> dict:
+    """Part (h): an MoE model's value and gradient under ``use_rules``
+    with per-layer remat.  The checkpoint's recompute runs on autograd's
+    device thread, which does not see the rules; the dispatch shards are
+    read outside it, so the run equals the one without remat."""
+    from repro_torch.configs import get_config, smoke_reduce
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import device_batch
+    from repro_torch.models import build_model
+    from repro_torch.sharding import use_rules
+    from repro_torch.train.step import value_and_grad
+    from repro_torch.utils.tree import flatten_with_names
+    t0 = time.perf_counter()
+    cfg = smoke_reduce(get_config("moonshot-v1-16b-a3b")).with_overrides(
+        n_layers=2, dtype="float32")
+    shape = ShapeConfig("moe", seq_len=32, global_batch=4, kind="train")
+    batch = device_batch(cfg, shape, 0)
+    runs = {}
+    for name, policy, shards in (("remat", "nothing_saveable", 2),
+                                 ("plain", "none", 2),
+                                 ("one_shard", "nothing_saveable", 1)):
+        api = build_model(cfg.with_overrides(remat_policy=policy))
+        with use_rules(None, {"dp_shards": shards}):
+            runs[name] = value_and_grad(api, api.init_params(0), batch)
+    (loss, m, g), (p_loss, p_m, p_g) = runs["remat"], runs["plain"]
+    p_flat = dict(flatten_with_names(p_g))
+    grad_rel = max(float((a - p_flat[n]).abs().max())
+                   / max(float(p_flat[n].abs().max()), 1e-30)
+                   for n, a in flatten_with_names(g))
+    rel = dict(loss=abs(float(loss) / float(p_loss) - 1),
+               aux=abs(float(m["aux"]) / float(p_m["aux"]) - 1),
+               grad_max=grad_rel)
+    one_aux = float(runs["one_shard"][1]["aux"])
+    check(max(rel.values()) <= 1e-5, f"MoE remat under rules: {rel}")
+    check(float(m["aux"]) != one_aux, "MoE under rules: aux equals the "
+          "one-shard run's")
+    return dict(arch="moonshot-v1-16b-a3b", n_layers=2, dtype="float32",
+                dp_shards=2, remat_vs_plain_rel=rel,
+                aux={"two_shards": float(m["aux"]), "one_shard": one_aux},
+                seconds=time.perf_counter() - t0)
+
+
 def _with_flash_block(block, fn):
     with _flash_block(block):
         return fn()
@@ -4700,6 +5071,7 @@ def phase_train(counters: dict) -> dict:
          "tinyllama-1.1b", "--reduced", "--steps", "4", "--ckpt-dir",
          os.path.join(tmp, "cli")], cwd=ROOT, env=env, text=True,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    examples = _examples_start(env)
     try:
         # (d) fault tolerance at smoke size, while the CLI child runs
         t0 = time.perf_counter()
@@ -4733,6 +5105,7 @@ def phase_train(counters: dict) -> dict:
               f"{err[-2000:]}")
         row["cli"] = [ln for ln in out.splitlines() if ln.startswith(
             ("training", "done:"))]
+        row["examples"] = _examples_join(examples)
 
         # (a) tinyllama-1.1b at full width and depth
         kernel = "flash_attention"
@@ -4769,6 +5142,16 @@ def phase_train(counters: dict) -> dict:
         _train_band_check("tinyllama-1.1b", par,
                           TRAIN_BANDS["tinyllama-1.1b"], "attn")
 
+        # (f) data-parallel training of (a)'s model on a (pod, data) mesh
+        t0 = time.perf_counter()
+        row["data_parallel"] = _train_dp(api, shape, ocfg, counted, wrappers,
+                                         kernel, counters)
+        row["data_parallel"]["seconds"] = time.perf_counter() - t0
+        # (g) the reference's compressed toy on a (2, 4) mesh
+        row["dp_toy"] = _train_toy()
+        # (h) an MoE model trained under rules, with remat
+        row["moe_rules"] = _train_moe_rules()
+
         # (c) mamba2-780m at full width, 8 layers
         kernel = "ssd_scan"
         arch = TRAIN_CELLS["ssm"][0]
@@ -4794,9 +5177,10 @@ def phase_train(counters: dict) -> dict:
         row["ssm_parity"] = par
         _train_band_check(arch, par, TRAIN_BANDS[arch], "mixer")
     finally:
-        if cli.poll() is None:
-            cli.kill()
-            cli.wait()
+        for kid in (cli, *examples.values()):
+            if kid.poll() is None:
+                kid.kill()
+                kid.wait()
         tmp_dir.cleanup()
         _free()
     emit("train", **row, bands=TRAIN_BANDS, f32_rel_band=TRAIN_F32_REL,
@@ -4951,7 +5335,7 @@ def main(argv=None) -> int:
              n: v["wall_us_per_step"] for n, v
              in results["service_pool"]["by_n"].items()},
          train_ms_per_step={cell: results["train"][cell]["ms_per_step"]
-                            for cell in TRAIN_CELLS})
+                            for cell in (*TRAIN_CELLS, "data_parallel")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -99,3 +99,14 @@ def opt_state_from_reference(cfg, opt_tree, device=None):
     out["step"] = torch.tensor(int(np.asarray(opt_tree["step"])),
                                dtype=torch.int32, device=device)
     return out
+
+
+def err_state_from_reference(cfg, per_pod_trees, device=None):
+    """The data-parallel trainer's residuals (``train.dp``: one f32 tree per
+    pod, in pod order) from the reference's per-pod residual trees (numpy
+    leaves in its stacked layout; its ``err_state`` array holds pod p's on
+    the devices of pod p), each through ``params_from_reference``'s
+    layout map."""
+    return [map_with_names(lambda _, t: t.float(),
+                           params_from_reference(cfg, tree, device))
+            for tree in per_pod_trees]

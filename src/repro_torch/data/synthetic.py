@@ -6,11 +6,11 @@ Zipf-ish token sequences packed with EOS delimiters, and the loss mask
 ignores padding.  ``host_batch`` is numpy and draws exactly what the
 reference draws, in the same order, so its batches equal the
 reference's bit for bit; ``device_batch`` and ``SyntheticStream`` put
-them on a torch device (None: CUDA, raising without a card).
-
-The reference's ``shardings=`` argument (per-host data loading onto a
-mesh) belongs to the sharding slice (ROADMAP Queue 1 item 14f) and is
-not here.
+them on a torch device (None: CUDA, raising without a card), or, with
+``shardings`` (a dict of ``NamedSharding`` like the batch), lay each leaf
+out on its mesh (``sharding.layout.put``: each shard's rows on its
+shard's device, the per-host loading of the reference's
+``make_array_from_callback``).
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
+from repro_torch.sharding.layout import put
 
 EOS = 1
 PAD = 0
@@ -75,12 +76,15 @@ def host_batch(cfg: ModelConfig, shape: ShapeConfig, step: int,
 
 
 def device_batch(cfg, shape, step, device=None,
-                 dcfg: DataConfig = DataConfig()) -> dict:
+                 dcfg: DataConfig = DataConfig(), shardings=None) -> dict:
     """``host_batch`` as tensors on ``device`` (None: CUDA, raising
-    without a card), each with its numpy dtype."""
+    without a card), each with its numpy dtype; with ``shardings`` each
+    leaf a ``ShardedTensor`` on the mesh's devices (``device`` unused)."""
+    hb = host_batch(cfg, shape, step, dcfg)
+    if shardings is not None:
+        return {k: put(v, shardings[k]) for k, v in hb.items()}
     dev = resolve_device(device)
-    return {k: torch.from_numpy(v).to(dev)
-            for k, v in host_batch(cfg, shape, step, dcfg).items()}
+    return {k: torch.from_numpy(v).to(dev) for k, v in hb.items()}
 
 
 class SyntheticStream:
@@ -88,16 +92,19 @@ class SyntheticStream:
     ``start_step``)."""
 
     def __init__(self, cfg, shape, start_step: int = 0,
-                 dcfg: DataConfig = DataConfig(), device=None):
+                 dcfg: DataConfig = DataConfig(), device=None,
+                 shardings=None):
         self.cfg, self.shape, self.dcfg = cfg, shape, dcfg
         self.step = start_step
-        self.device = resolve_device(device)
+        self.shardings = shardings
+        self.device = None if shardings is not None else resolve_device(
+            device)
 
     def __iter__(self):
         return self
 
     def __next__(self):
         b = device_batch(self.cfg, self.shape, self.step, self.device,
-                         self.dcfg)
+                         self.dcfg, self.shardings)
         self.step += 1
         return b

@@ -63,7 +63,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     0.02).  Weights carried across from the reference go through
     ``repro_torch.convert.params_from_reference``."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = L.generator(device, seed)
     dtype = _dtype(cfg)
 
     def positions(n):

@@ -17,6 +17,24 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 
 
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on the ``meta`` device: shapes and
+    dtypes with no storage and no random numbers drawn."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def generator(device: torch.device, seed: int) -> torch.Generator:
+    """The init's generator on ``device``, seeded; on the ``meta`` device
+    (``param_specs``), which has no generator of its own, a stand-in
+    whose ``device`` is meta."""
+    if device.type == "meta":
+        return _MetaGenerator()
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def dense_init(gen: torch.Generator, in_dim: int, out_shape, dtype):
     """Truncated-normal fan-in init: a standard normal truncated to
     (-2, 2), times ``in_dim ** -0.5``, drawn in f32 from ``gen`` on the

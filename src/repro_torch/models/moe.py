@@ -2,11 +2,14 @@
 a sort-based dispatch into a static capacity buffer, grouped expert
 products, and a combine in the reference's order.
 
-Without a mesh the reference dispatches over one shard
-(``sharding.ctx.dispatch_shards()`` is 1), for ``moe_dispatch`` "shard"
-and "global" alike, and so does the port: every token of the batch is
-sorted and capacity-bucketed together.  Sharded dispatch waits with the
-sharding slice (ROADMAP Queue 1 item 14f).
+Per-data-shard dispatch, as the reference's: under ``moe_dispatch=
+"shard"`` the tokens are reshaped shard-major into ``dispatch_shards()``
+shards ([S, T_loc, d]; 1 without rules, and 1 when S does not divide the
+batch), and each shard's stable sort, capacity (``moe_capacity(T_loc)``)
+and drops are its own; ``aux`` is the mean over shards of each shard's
+Switch loss.  The expert products run over every shard's slots at once
+([E, S cap, d], the reference's ``secd,edf->secf``).  Under "global", or
+without rules, all tokens of the batch are bucketed together.
 
 Numerics, as the reference computes them:
   - router logits ``x . router`` in f32 from the widened activations,
@@ -40,6 +43,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init, dot
+from repro_torch.sharding.ctx import dispatch_shards
 
 
 def moe_capacity(tokens_per_shard: int, cfg: ModelConfig) -> int:
@@ -64,9 +68,11 @@ def init_moe(cfg: ModelConfig, gen: torch.Generator, dtype):
 
 
 def _counts(flat, n: int):
-    """Occurrences of 0..n-1 in the int tensor ``flat`` (int64)."""
-    return torch.zeros(n, dtype=torch.int64, device=flat.device).scatter_add_(
-        0, flat, torch.ones_like(flat))
+    """Occurrences of 0..n-1 in each row of the int tensor ``flat``
+    [..., m]: [..., n] int64."""
+    return torch.zeros((*flat.shape[:-1], n), dtype=torch.int64,
+                       device=flat.device).scatter_add_(
+        -1, flat, torch.ones_like(flat))
 
 
 def _f32_product(a, w):
@@ -110,8 +116,8 @@ def _f32_bmm(a, w):
 
 
 def route(p, xs, cfg: ModelConfig):
-    """Top-k routing of the tokens xs [T, d].  Returns (probs [T, E] f32,
-    ids [T, k], gates [T, k] f32 renormalised)."""
+    """Top-k routing of the tokens xs [..., T, d].  Returns (probs [..., T,
+    E] f32, ids [..., T, k], gates [..., T, k] f32 renormalised)."""
     probs = torch.softmax(dot(xs, p["router"], f32=True), dim=-1)
     gates, ids = torch.topk(probs, cfg.moe.top_k, dim=-1)
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
@@ -119,49 +125,70 @@ def route(p, xs, cfg: ModelConfig):
 
 
 def dispatch(ids, cap: int, n_experts: int):
-    """The reference's capacity bucketing of the flat expert ids
-    ``ids`` [T, k].  Returns (order [T k]: the stable sort by expert,
-    keep [T k]: the entry fits its expert's capacity, dest [T k]: its slot
-    ``expert * cap + position`` (slot 0 of its expert when dropped), all
-    in sorted order)."""
-    flat = ids.reshape(-1)
-    order = torch.sort(flat, stable=True).indices
-    sorted_ids = flat[order]
+    """The reference's capacity bucketing of the expert ids ``ids`` [...,
+    T, k], each leading index (a data shard) on its own.  Returns (order
+    [..., T k]: the stable sort by expert, keep [..., T k]: the entry fits
+    its expert's capacity, dest [..., T k]: its slot ``expert * cap +
+    position`` (slot 0 of its expert when dropped)), all in sorted
+    order."""
+    flat = ids.flatten(-2)
+    order = torch.sort(flat, dim=-1, stable=True).indices
+    sorted_ids = torch.gather(flat, -1, order)
     counts = _counts(flat, n_experts)
-    starts = torch.cumsum(counts, 0) - counts
-    pos = torch.arange(flat.numel(), device=ids.device) - starts[sorted_ids]
+    starts = torch.cumsum(counts, -1) - counts
+    pos = (torch.arange(flat.shape[-1], device=ids.device)
+           - torch.gather(starts, -1, sorted_ids))
     keep = pos < cap
-    dest = sorted_ids * cap + torch.where(keep, pos, 0)
-    return order, keep, dest
+    return order, keep, sorted_ids * cap + torch.where(keep, pos, 0)
 
 
-def apply_moe(p, x, cfg: ModelConfig):
+def n_dispatch_shards(cfg: ModelConfig, b: int, shards: int) -> int:
+    """The data shards the tokens of a [b, s, d] batch are bucketed in:
+    ``shards`` (the rules' ``dispatch_shards()``) under ``moe_dispatch=
+    "shard"``, 1 for "global" or when it does not divide ``b``."""
+    n = shards if cfg.moe_dispatch == "shard" else 1
+    return n if b % n == 0 else 1
+
+
+def apply_moe(p, x, cfg: ModelConfig, shards: int | None = None):
     """x: [b, s, d].  Returns (out [b, s, d] in x's dtype, aux: the Switch
-    load-balance loss, an f32 scalar)."""
+    load-balance loss averaged over the dispatch shards, an f32
+    scalar).  ``shards``: the rules' ``dispatch_shards()``, read by the
+    caller outside any checkpointed region (a recompute in backward may
+    run on autograd's device thread, which does not see this thread's
+    rules); None reads them here."""
     b, s, d = x.shape
     e, k = cfg.moe.n_experts, cfg.moe.top_k
-    t = b * s
+    n = n_dispatch_shards(cfg, b, dispatch_shards() if shards is None
+                          else shards)
+    t = (b // n) * s                                      # tokens a shard
     cap = moe_capacity(t, cfg)
-    xs = x.reshape(t, d)
+    xs = x.reshape(n, t, d)                               # shard-major
 
     probs, ids, gates = route(p, xs, cfg)
-    ce = _counts(ids.reshape(-1), e).float() / (t * k)
-    aux = e * torch.sum(probs.mean(0) * ce)
+    ce = _counts(ids.reshape(n, t * k), e).float() / (t * k)
+    aux = (e * torch.sum(probs.mean(1) * ce, -1)).mean()
 
     order, keep, dest = dispatch(ids, cap, e)
-    token_idx = order // k
-    # the capacity buffer [E cap, d]: each kept entry copied to its slot,
-    # a dropped one to the scratch row e * cap
-    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf.index_copy_(0, torch.where(keep, dest, e * cap), xs[token_idx])
-    buf = buf[:-1].view(e, cap, d)
+    shard = torch.arange(n, device=x.device)[:, None]
+    token_idx = order // k + shard * t                    # into [S T]
+    # the capacity buffer [E, S cap, d], expert-major: each kept entry
+    # copied to its shard's slot, a dropped one to the scratch row
+    # e * S * cap; an entry reads back its slot (a dropped one slot 0 of
+    # its expert in its shard)
+    dest = (dest // cap) * (n * cap) + shard * cap + dest % cap
+    buf = torch.zeros((e * n * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf.index_copy_(0, torch.where(keep, dest, e * n * cap).reshape(-1),
+                    xs.reshape(n * t, d)[token_idx.reshape(-1)])
+    buf = buf[:-1].view(e, n * cap, d)
 
     h = (F.silu(_f32_bmm(buf, p["wi"])) * _f32_bmm(buf, p["wu"])).to(x.dtype)
-    out_e = torch.bmm(h, p["wo"]).reshape(e * cap, d)
+    out_e = torch.bmm(h, p["wo"]).reshape(e * n * cap, d)
 
-    w = gates.reshape(-1)[order] * keep                       # [T k] f32
-    back = (out_e[dest].float() * w[:, None]).to(x.dtype)     # sorted order
-    return combine(back, order, k).view(b, s, d), aux
+    w = torch.gather(gates.reshape(n, t * k), -1, order) * keep   # f32
+    back = (out_e[dest.reshape(-1)].float() * w.reshape(-1, 1)).to(x.dtype)
+    return combine(back, (order + shard * (t * k)).reshape(-1),
+                   k).view(b, s, d), aux
 
 
 def combine(back, order, k: int):

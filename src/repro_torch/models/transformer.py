@@ -45,6 +45,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as S
 from repro_torch.models import moe as M
+from repro_torch.sharding.ctx import dispatch_shards
 
 AUX_LOSS_COEF = 0.01
 XENT_CHUNK = 512
@@ -97,11 +98,12 @@ def cache_slots(cfg: ModelConfig) -> list[int]:
 def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     """Random parameters from ``seed``, drawn on ``device`` (None: CUDA,
     raising without a card) by a ``torch.Generator`` there, in the
-    config's dtype.  The draws are the reference's distributions, not its
-    bits: weights carried across from the reference go through
-    ``repro_torch.convert.params_from_reference``."""
+    config's dtype; on ``"meta"`` the tree's shapes and dtypes with no
+    draw (``ModelApi.param_specs``).  The draws are the reference's
+    distributions, not its bits: weights carried across from the
+    reference go through ``repro_torch.convert.params_from_reference``."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = L.generator(device, seed)
     dtype = _dtype(cfg)
     params = {"embed": L.init_embed(cfg, gen, dtype),
               "head": L.init_lm_head(cfg, gen, dtype),
@@ -129,19 +131,19 @@ def _use_rope(cfg: ModelConfig) -> bool:
     return cfg.norm_type == "rmsnorm"
 
 
-def _ffn(cfg, lp, x):
+def _ffn(cfg, lp, x, shards):
     """x plus the layer's MLP or MoE FFN, and the MoE's aux loss (None
-    for a layer without one)."""
+    for a layer without one).  ``shards``: the MoE's dispatch shards."""
     if not _has_ffn(cfg):
         return x, None
     h = L.apply_norm(lp["norm2"], x, cfg)
     if "moe" in lp:
-        out, aux = M.apply_moe(lp["moe"], h, cfg)
+        out, aux = M.apply_moe(lp["moe"], h, cfg, shards)
         return x + out, aux
     return x + L.apply_mlp(lp["mlp"], h, cfg), None
 
 
-def _layer(cfg, lp, x, force):
+def _layer(cfg, lp, x, force, shards):
     """One layer (mixer, then FFN): (x, aux or None)."""
     h = L.apply_norm(lp["norm1"], x, cfg)
     if "attn" in lp:
@@ -149,7 +151,7 @@ def _layer(cfg, lp, x, force):
                            force=force)
     else:
         h = S.mamba_forward(lp["mamba"], h, cfg, force=force)
-    return _ffn(cfg, lp, x + h)
+    return _ffn(cfg, lp, x + h, shards)
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -179,7 +181,11 @@ def backbone(cfg: ModelConfig, params, x, *, force=None, remat_layers=False):
     Returns (x, aux: the MoE layers' aux losses, an f32 scalar, summed
     within each group and then over the groups).  ``force`` goes to the
     flash or SSD scan dispatch of every layer; ``remat_layers`` runs each
-    layer under the checkpoint of ``cfg.remat_policy``."""
+    layer under the checkpoint of ``cfg.remat_policy``.  The MoE dispatch
+    shards are read from the rules here, once, outside the checkpoint:
+    its recompute may run on autograd's device thread, which does not see
+    this thread's ``use_rules``."""
+    shards = dispatch_shards()
     layer = partial(_layer, cfg)
     if remat_layers:
         layer = remat(layer, cfg.remat_policy)
@@ -188,7 +194,7 @@ def backbone(cfg: ModelConfig, params, x, *, force=None, remat_layers=False):
     for i, lp in enumerate(params["layers"]):
         if i % g == 0:
             aux_g = torch.zeros((), dtype=torch.float32, device=x.device)
-        x, aux_j = layer(lp, x, force)
+        x, aux_j = layer(lp, x, force, shards)
         if aux_j is not None:
             aux_g = aux_g + aux_j
         if i % g == g - 1:
@@ -309,6 +315,6 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int):
                                             cache["state"][j])
             cache["conv"][j].copy_(conv)
             cache["state"][j].copy_(state)
-        x, _ = _ffn(cfg, lp, x + h)
+        x, _ = _ffn(cfg, lp, x + h, dispatch_shards())
     x = L.apply_norm(params["final_norm"], x, cfg)
     return L.lm_logits(params["embed"], params["head"], x, cfg)[:, 0], cache

@@ -1,18 +1,23 @@
-"""The optimizer (``repro/optim``): AdamW with f32 masters.
-
-The reference's gradient compression (``optim/compression.py``:
-``compressed_psum`` over a ``('pod', 'data')`` mesh and its int8
-quantizers) and ``adamw_init_specs`` (the dry-run's shapes) go with the
-sharding slice (ROADMAP Queue 1 item 14f).
-"""
+"""The optimizer (``repro/optim``): AdamW with f32 masters, and int8
+error-feedback compression of the cross-pod gradient reduction."""
 
 from repro_torch.optim.adamw import (
     AdamWConfig,
     adamw_init,
+    adamw_init_specs,
     adamw_update,
     global_norm,
     lr_schedule,
 )
+from repro_torch.optim.compression import (
+    compress_with_feedback,
+    compressed_psum,
+    dequantize_int8,
+    init_error_state,
+    quantize_int8,
+)
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm",
-           "lr_schedule"]
+__all__ = ["AdamWConfig", "adamw_init", "adamw_init_specs", "adamw_update",
+           "global_norm", "lr_schedule", "compress_with_feedback",
+           "compressed_psum", "dequantize_int8", "init_error_state",
+           "quantize_int8"]

@@ -25,9 +25,6 @@ With the same gradients, state and schedule the port's update is the
 reference's bit for bit; the global norm sums the leaves in another order
 (``tests/test_torch_optim.py``).  ``utils.fp.fma`` gives the one rounding
 on either device.
-
-``adamw_init_specs`` (the dry-run's shapes) waits with ``launch/specs.py``
-for the sharding slice (ROADMAP Queue 1 item 14f).
 """
 
 from __future__ import annotations
@@ -100,6 +97,18 @@ def adamw_init(params):
             x.shape, dtype=torch.float32, device=x.device), params),
         "step": torch.zeros((), dtype=torch.int32, device=dev),
     }
+
+
+def adamw_init_specs(param_specs):
+    """``adamw_init``'s shapes and dtypes as meta tensors (no storage):
+    f32 ``master``, ``m`` and ``v`` like ``param_specs`` and an int32
+    ``step``."""
+    def f32(_, x):
+        return torch.empty(x.shape, dtype=torch.float32, device="meta")
+    return {"master": map_with_names(f32, param_specs),
+            "m": map_with_names(f32, param_specs),
+            "v": map_with_names(f32, param_specs),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
 
 
 def _pow(b: float, t):

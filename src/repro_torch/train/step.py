@@ -20,19 +20,30 @@ from repro_torch.optim import AdamWConfig, adamw_update
 from repro_torch.utils.tree import flatten_with_names, map_with_names
 
 
+def loss_and_grads(loss_fn, params, batch):
+    """(``loss_fn(params, batch)``'s output, the gradient of its loss with
+    respect to every leaf of ``params``, in the leaves' dtypes, as a tree
+    like ``params``).  ``loss_fn`` returns the loss or (loss, metrics);
+    the params are read through leaves that require grad and nothing is
+    written into them."""
+    flat = [(n, t.detach().requires_grad_(True))
+            for n, t in flatten_with_names(params)]
+    leaves = dict(flat)
+    out = loss_fn(map_with_names(lambda n, _: leaves[n], params), batch)
+    loss = out[0] if isinstance(out, tuple) else out
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(
+        leaves.values()))))
+    return out, map_with_names(lambda n, _: grads[n], params)
+
+
 def value_and_grad(api: ModelApi, params, batch, force=None):
     """(loss, metrics, grads): ``api.train_loss`` (``force`` to its
     kernel dispatch) and its gradient with respect to every leaf of
     ``params``, in the leaves' dtypes, as a tree like ``params``."""
-    flat = [(n, t.detach().requires_grad_(True))
-            for n, t in flatten_with_names(params)]
-    leaves = dict(flat)
-    loss, metrics = api.train_loss(
-        map_with_names(lambda n, _: leaves[n], params), batch, force=force)
-    grads = dict(zip(leaves, torch.autograd.grad(loss, list(
-        leaves.values()))))
+    (loss, metrics), grads = loss_and_grads(
+        lambda p, b: api.train_loss(p, b, force=force), params, batch)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-            map_with_names(lambda n, _: grads[n], params))
+            grads)
 
 
 def make_train_step(api: ModelApi, ocfg: AdamWConfig, microbatches: int = 1):

@@ -1,7 +1,8 @@
 """Nested containers of tensors: leaves with path names, and rebuilding.
 
 A tree is any nesting of dicts, lists, tuples and ``NamedTuple``s; every
-other object (a tensor, a numpy array, a number) is a leaf and ``None``
+other object (a tensor, a numpy array, a number, a tuple subclass such as
+a ``PartitionSpec``, as in JAX's pytrees) is a leaf and ``None``
 is an empty subtree.  Names follow the reference's pytree paths
 (``src/repro/utils/tree.py``): a dict key gives ``str(key)`` (keys in
 sorted order), a sequence its index and a ``NamedTuple`` its field name,
@@ -22,7 +23,7 @@ def _children(tree):
         return [(str(k), tree[k]) for k in sorted(tree)]
     if _is_namedtuple(tree):
         return list(zip(tree._fields, tree))
-    if isinstance(tree, (list, tuple)):
+    if type(tree) in (list, tuple):
         return [(str(i), x) for i, x in enumerate(tree)]
     return None
 

@@ -403,3 +403,74 @@ def test_training_loads_no_jax_and_never_falls_back(monkeypatch, tmp_path):
         train.main(["--arch", "tinyllama-1.1b", "--reduced", "--steps", "1",
                     "--ckpt-dir", str(tmp_path)])
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("example", ["torch_serve_demo", "torch_train_smoke"])
+def test_lm_examples_run_on_the_cpu_and_default_to_cuda(example, monkeypatch,
+                                                        capsys):
+    """The serve and train examples run with ``--device cpu`` (the train
+    one crashes on purpose and resumes) and raise without a card."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        example, ROOT / "examples" / f"{example}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    argv = (["--tokens", "4"] if example == "torch_serve_demo"
+            else ["--steps", "4", "--batch", "2", "--seq", "16",
+                  "--microbatches", "1"])
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    try:
+        mod.main([*argv, "--device", "cpu"])
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    if example == "torch_serve_demo":
+        assert "decoded 4 tokens x batch 4" in out and "on CPU" in out
+    else:
+        assert "injected crash at step 2" in out
+        assert "steps=4 resumed_from=2 on cpu" in out
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main(argv)
+
+
+def test_sharding_and_data_parallel_refuse_nothing(monkeypatch):
+    """The sharding modules, the meshes, the specs and the data-parallel
+    trainer load no JAX or ``repro`` module and refuse no option of the
+    reference's: every arch's ``param_specs`` / ``input_specs`` build, the
+    (pod, data) trainer runs compressed and not; the meshes and
+    ``build_model`` default to CUDA and raise without a card."""
+    code = ("import sys\n"
+            "import repro_torch.sharding, repro_torch.sharding.grid\n"
+            "import repro_torch.sharding.params, repro_torch.launch.specs\n"
+            "import repro_torch.train.dp, repro_torch.optim.compression\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    from repro_torch.configs import ARCH_IDS, SHAPES, get_config
+    from repro_torch.launch.mesh import (_make_mesh, make_elastic_mesh,
+                                         make_production_mesh)
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_dp_state, make_dp_train_step
+    for arch in ARCH_IDS:
+        api = build_model(get_config(arch), device="cpu")
+        assert api.param_specs() and api.input_specs(SHAPES["train_4k"])
+    mesh = _make_mesh((2, 1), ("pod", "data"), device="cpu")
+    p = {"w": torch.ones(3)}
+    for compress in (True, False):
+        step = make_dp_train_step(lambda q, b: (q["w"] * b["x"]).sum(),
+                                  mesh, AdamWConfig(), compress)
+        out = step(p, *init_dp_state(p), {"x": torch.ones((2, 3))})
+        assert torch.isfinite(out[3])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: _make_mesh((2, 2), ("pod", "data")),
+                 make_production_mesh, lambda: make_elastic_mesh(32),
+                 lambda: build_model(get_config("tinyllama-1.1b"))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
