@@ -56,8 +56,9 @@ Phases, each printing one JSON line:
                the bound and the tensor-core route's issued-operation
                floor (no single PyTorch call computes an SSD scan)
   paper        the paper's NPB K sweep; the paper-claim assertions hold
-  campaign     the documented campaign: 10,000 Poisson NPB jobs at rate
-               0.5, K in {0, .05, .1, .2, .3} x 4 seeds, stragglers and
+  campaign     the documented campaign: the first 5,000 of its 10,000
+               Poisson NPB jobs at rate 0.5 (all 10,000 until PR 26), K in
+               {0, .05, .1, .2, .3} x 4 seeds, stragglers and
                failures, warm start, full and totals_only.  The kernel's
                launch count rises by exactly J per run, the twin placer
                gives bit-equal results on the first 2,000 jobs (every
@@ -67,8 +68,9 @@ Phases, each printing one JSON line:
   easy_campaign  EASY backfilling, window 16, on the reference ablation's
                contended SWF stream (``synthetic_swf_arrays(10_000)``
                through ``swf_lines``/``load_swf``/``workload_from_trace``,
-               the four JSCC systems), the campaign's grid (20 lanes),
-               faults and warm start: the full 10,016-step run launches
+               the four JSCC systems) cut to its first 5,000 jobs (10,000
+               until PR 26), the campaign's grid (20 lanes),
+               faults and warm start: the 5,016-step run launches
                the kernel exactly 2 (J + W) times, every lane backfills,
                EASY's mean total wait over the lanes is below FCFS's on
                the same stream (every lane printed); on the first 2,000
@@ -79,15 +81,15 @@ Phases, each printing one JSON line:
                JSCC systems, maxN 136, window 16): the cluster draw added
                in the reference's order by ``segment_reduce`` equals one
                add per element; (a) FCFS on the event clock with failure
-               re-queue on the campaign's stream cut to 500 jobs, its
-               grid (20 lanes) and faults, one kth_free launch a step
-               (3,504), ``sort`` placer bit-equal and ``totals_only``
-               totals equal; (b) the same 500 jobs with stragglers only
-               (2,004 steps), bit-equal to the arrival core's FCFS; (c)
-               event EASY on them, two launches a step; (d) the
-               example's capped conservative campaign (the first 500 of
-               its 1,000 diurnal jobs, caps 45/52/60 kW and none), one
-               rows launch a step (2,504): peaks under the caps, makespan
+               re-queue on the campaign's stream cut to 250 jobs (500
+               until PR 26), its grid (20 lanes) and faults, one kth_free
+               launch a step (1,754), ``sort`` placer bit-equal and
+               ``totals_only`` totals equal; (b) the same 250 jobs with
+               stragglers only (1,004 steps), bit-equal to the arrival
+               core's FCFS; (c) event EASY on them, two launches a step;
+               (d) the example's capped conservative campaign (the first
+               250 of its 1,000 diurnal jobs, caps 45/52/60 kW and none),
+               one rows launch a step (1,254): peaks under the caps, makespan
                non-decreasing as the cap tightens, ``totals_only`` equal
                and the uncapped lane equal to an uncapped run;
                each with no host sync in the
@@ -97,12 +99,12 @@ Phases, each printing one JSON line:
                reference ablation's two streams; (f) the DVFS cap x
                freq_weight x K lattice: binding caps hold, tier counts.
                The twins of (a) and (d), (e) and (f) report no times and
-               run in a child process beside ``cross_device`` (the
-               ``event`` child); their checks run before the service
-               phase's first live step
+               run in a child process beside ``campaign_scale`` and
+               ``cross_device`` (the ``event`` child); their checks run
+               before the service phase's first live step
   campaign_scale  campaign scale: (a) each core chunked against its
                monolithic run, bit for bit on every field: FCFS on the
-               campaign phase's own 10,000-job kernel run at chunk 4,093;
+               campaign phase's own 5,000-job kernel run at chunk 4,093;
                EASY (window 16) on the first 1,000 jobs of the EASY stream
                at chunk 97, full and ``totals_only``; the event core's
                FCFS with failure re-queue on the first 200 jobs of the
@@ -117,9 +119,10 @@ Phases, each printing one JSON line:
                the reference's million-job configuration (two small
                systems, ``ucb``, warm, ``totals_only``, chunk 4,096) on 16
                K x 4 seeds = 64 lanes at J = 10,000 and 30,000 (cut from
-               10^6 for the script's time): peak memory grows by less
-               than one [64, 20,000] f32 array, the monolithic peak at
-               10,000 beside it, ms per step, jobs/s; (d)
+               10^6 for the script's time; since PR 26 in a child started
+               with ``event_campaign``): peak memory grows by less than
+               one [64, 20,000] f32 array, the monolithic peak at 10,000
+               beside it, ms per step, jobs/s; (d)
                ``examples/torch_quickstart.py`` and
                ``examples/torch_multi_cluster_campaign.py --jobs 4
                --sim-jobs 500`` exit 0, a SUPPZ round decides as on the
@@ -128,7 +131,10 @@ Phases, each printing one JSON line:
   cross_device the first 1,000 jobs on the CPU (twin) against the card
                (kernel) within the parity bands of PERF.md; the first
                500 jobs of the EASY stream, full and totals_only; and the
-               first 500 jobs of event_campaign's runs (a) and (d)
+               first 250 jobs of event_campaign's runs (a) and (d); the
+               CPU runs come from the ``cross`` child (``cross_part``,
+               two threads), started after the build, which also
+               computes the ``mirror`` phase's host side
   schedule_cli ``repro_torch.launch.schedule.main`` on the card: the paper
                suite, ``--jobs 200 --scenario diurnal --queue
                easy_backfill:window=16``, the SWF fixture as an EASY
@@ -160,8 +166,9 @@ Phases, each printing one JSON line:
                reference docstring's request stream; decision latency
                (µs per ``step_once``: mean, p50, p99, max), steps per
                placed job, what-if ms.  The batch runs and the CLI run in
-               two child processes started before ``cross_device`` (which
-               and ``schedule_cli`` report no times); they and the
+               two child processes started before ``campaign_scale``
+               (whose times compare nothing later) and run beside it,
+               ``cross_device`` and ``schedule_cli``; they and the
                ``service_pool`` phase's two children end before the
                first live step
   service_pool the online service's session pool
@@ -201,6 +208,23 @@ Phases, each printing one JSON line:
                ``ProfileStore`` (modes paper, fastest, first_free; K = 0.10;
                Skylake degraded x3 after job 14), each job executed on the
                card at ``smoke`` size and verified; energy and makespan
+  mirror       the campaign stream's first 300 jobs over its K grid,
+               faults off, on the card under FCFS, EASY (window 16),
+               event EASY, conservative, a 52 kW cap and DVFS tiers, each
+               lane held against the port's float64 mirror
+               ``simulate_py`` on the host (the ``cross`` child;
+               conservative with
+               ``check_reservations``): systems exact; energy, start,
+               total energy and makespan at the reference's differential
+               bands where the backfill order agrees, else the card's
+               run equal to the port's CPU run; the worst relative error
+               per field
+  easy_unrolled  ``easy_eval="unrolled"`` against the batched step on
+               the ablation's SWF stream cut to 300 jobs, window 16, K
+               {0, .1, .2} x 2 seeds with faults: 2 W + 2 = 34 kth_free
+               launches a step against 2, placements and starts exact,
+               tables within the reference's band; ms a step of both,
+               the idle share of a 50-step device-only trace
   serve        tinyllama-1.1b at full width (22 x 2048, bf16, seeded
                weights): a 4 x 4,096-token ``prefill`` launches the flash
                kernel once per layer (the tensor-core route; f32: the
@@ -308,6 +332,11 @@ Phases, each printing one JSON line:
                (whose recompute runs on autograd's device thread) within
                1e-5 relative of the run without remat, and aux not the
                one-shard run's
+  roofline     host only: ``utils/cost.py``'s FLOPs and HBM bytes of the
+               4 x 4,096 bf16 prefills of ``serve`` and ``serve_ssm`` on
+               one card, their bound at the H100's datasheet peaks
+               (``launch/roofline.H100``), and the wall time those phases
+               measured as a share of it
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -344,6 +373,10 @@ BIG = 1e30
 CAMPAIGN_KS = (0.0, 0.05, 0.1, 0.2, 0.3)
 CAMPAIGN_SEEDS = (0, 1, 2, 3)
 CAMPAIGN_J = 10_000
+#: the campaign's and the EASY campaign's main runs: the first 5,000 jobs
+#: of their 10,000-job streams (cut from all 10,000 for the script's
+#: time: the card's host ran 1.0-1.9x slower from one call to the next)
+CAMPAIGN_RUN_J = 5_000
 #: the twin placer's prefix of the campaign stream (its radix twin takes
 #: ~9 ms a step: the whole stream took 84-105 s of the script)
 CAMPAIGN_TWIN_J = 2_000
@@ -1427,14 +1460,16 @@ CAMPAIGN_FAULTS = dict(straggler_prob=0.05, failure_prob=0.01)
 
 def _campaign(w, placer=None, device=None, totals_only=False, queue=None,
               engine=None, faults=CAMPAIGN_FAULTS, policy=None,
-              seeds=CAMPAIGN_SEEDS, chunk=None, shards=None):
+              seeds=CAMPAIGN_SEEDS, chunk=None, shards=None,
+              easy_eval="batched"):
     """``Scheduler.run`` of the campaign's grid (``paper`` over the K grid
     x seeds, warm start) or of ``policy`` with ``seeds``."""
     from repro_torch.core import FaultConfig, Scheduler
     sched = Scheduler(policy or _policy_of(), seeds=seeds, warm_start=True,
                       faults=None if faults is None else FaultConfig(**faults),
                       placer=placer, device=device, queue=queue,
-                      engine=engine, chunk=chunk, shards=shards)
+                      engine=engine, chunk=chunk, shards=shards,
+                      easy_eval=easy_eval)
     return sched.run(w, totals_only=totals_only)
 
 
@@ -1519,9 +1554,9 @@ def phase_campaign(counters: dict) -> dict:
     from repro_torch.core import JSCC_SYSTEMS
     from repro_torch.data import make_stream_workload
     from repro_torch.kernels.kth_free import kth_free_cuda
-    w = make_stream_workload(JSCC_SYSTEMS, CAMPAIGN_J, "poisson", rate=0.5,
-                             seed=0)
-    J, B = CAMPAIGN_J, len(CAMPAIGN_KS) * len(CAMPAIGN_SEEDS)
+    w = _prefix(make_stream_workload(JSCC_SYSTEMS, CAMPAIGN_J, "poisson",
+                                     rate=0.5, seed=0), CAMPAIGN_RUN_J)
+    J, B = CAMPAIGN_RUN_J, len(CAMPAIGN_KS) * len(CAMPAIGN_SEEDS)
 
     # the main path: every count to 0 just before, read just after
     kth_free_cuda.launches = 0
@@ -1593,67 +1628,117 @@ def phase_campaign(counters: dict) -> dict:
     return res
 
 
-def phase_cross_device() -> None:
-    """The first 1,000 jobs of the campaign on the CPU (twin) and the card
-    (kernel): placements and per-job values exact, reductions over jobs
-    within rtol 1e-6 (torch.sum adds in another order on each device)."""
-    import numpy as np
+def _cross_cases():
+    """``cross_device``'s runs: (name, workload, ``_campaign`` keywords):
+    the first 1,000 jobs of the campaign (full path and ``totals_only``),
+    the first 500 of the EASY stream (both paths), and the first
+    EVENT_TWIN_J jobs of the event runs (a) and (d)."""
     from repro_torch.core import JSCC_SYSTEMS
     from repro_torch.data import make_stream_workload
     w = _prefix(make_stream_workload(JSCC_SYSTEMS, CAMPAIGN_J, "poisson",
                                      rate=0.5, seed=0), 1000)
-    for totals_only in (False, True):
-        cpu = _campaign(w, device="cpu", totals_only=totals_only)
-        gpu = _campaign(w, totals_only=totals_only)
-        banded = () if totals_only else ("total_energy", "total_wait",
-                                         "slowdown_sum")
-        worst = 0.0
-        for f in ("system", "tier", "nodes", "start", "finish", "wait",
-                  "energy", "runtime", "C_tab", "T_tab", "runs", "busy",
-                  "makespan", "max_wait", "idle_energy", "total_energy",
-                  "total_wait", "slowdown_sum"):
-            a = getattr(cpu, f)
-            if a is None:
-                continue
-            a, b = a.numpy(), getattr(gpu, f).cpu().numpy()
-            if f in banded:
-                rel = np.abs(a.astype(np.float64) - b) / np.abs(a)
-                worst = max(worst, float(rel.max()))
-                check(bool((rel <= 1e-6).all()), f"cpu/cuda {f} rel {rel}")
-            else:
-                check(np.array_equal(a, b), f"cpu/cuda {f} differ")
-        emit("cross_device", jobs=1000, totals_only=totals_only,
-             exact="all but " + ",".join(banded) if banded else "all",
-             worst_rel_reduction=worst)
-    # EASY: the first 500 jobs of the easy_campaign stream
-    w = _prefix(_easy_stream(), 500)
-    for totals_only in (False, True):
-        kw = dict(totals_only=totals_only, queue=EASY_QUEUE)
-        cpu = _campaign(w, device="cpu", **kw)
-        gpu = _campaign(w, **kw)
-        banded = () if totals_only else ("total_energy", "total_wait",
-                                         "slowdown_sum")
-        worst = _same(cpu, gpu, EASY_FIELDS, banded, "cpu/cuda")
-        emit("cross_device", queue=EASY_QUEUE, jobs=500,
-             totals_only=totals_only,
-             exact="all but " + ",".join(banded) if banded else "all",
-             worst_rel_reduction=worst,
-             n_backfilled=gpu.n_backfilled.flatten().tolist())
-    # the event cores: the first EVENT_TWIN_J jobs of the event_campaign's
-    # runs (a) FCFS with failure re-queue and (d) capped conservative
-    banded = ("total_energy", "total_wait", "slowdown_sum")
-    for run, w, kw in (
-            ("fcfs_retries", _prefix(_event_stream(), EVENT_TWIN_J),
+    we = _prefix(_easy_stream(), 500)
+    out = [(f"fcfs.{t}", w, dict(totals_only=t)) for t in (False, True)]
+    out += [(f"easy.{t}", we, dict(totals_only=t, queue=EASY_QUEUE))
+            for t in (False, True)]
+    out += [("fcfs_retries", _prefix(_event_stream(), EVENT_TWIN_J),
              dict(engine="events", queue=EVENT_FCFS)),
             ("cons_capped", _prefix(_cap_stream(), EVENT_TWIN_J),
-             dict(policy=_cap_policy(), faults=None, seeds=0))):
-        cpu = _campaign(w, device="cpu", **kw)
+             dict(policy=_cap_policy(), faults=None, seeds=0))]
+    return out
+
+
+def _tensor_fields(res) -> dict:
+    """A result's tensor fields on the CPU (None where absent)."""
+    import dataclasses
+    import torch
+    out = {}
+    for f in dataclasses.fields(res):
+        v = getattr(res, f.name)
+        if v is None or torch.is_tensor(v):
+            out[f.name] = None if v is None else v.cpu()
+    return out
+
+
+def cross_part(tmp: str) -> None:
+    """The host's side of ``cross_device`` and ``mirror``, in a process of
+    its own (``KID_GROUPS``) started after the build, two CPU threads:
+    the port's CPU runs of ``_cross_cases`` and of every ``MIRROR_RUNS``
+    grid, and the float64 mirror ``simulate_py`` of every run and K,
+    saved to ``tmp/cross.pt``."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import simulate_py
+    torch.set_num_threads(2)
+    out = {}
+    for name, w, kw in _cross_cases():
+        out[name] = _tensor_fields(_campaign(w, device="cpu", **kw))
+    w = _mirror_stream()
+    for name, (fields, kw) in MIRROR_RUNS.items():
+        cfg0, sched = _mirror_sched(fields)
+        out[f"mirror.{name}.cpu"] = _tensor_fields(sched("cpu").run(w))
+        for k in CAMPAIGN_KS:
+            ref = simulate_py(w, dataclasses.replace(cfg0, k=float(k)), **kw)
+            out[f"mirror.{name}.{k}"] = {
+                f: torch.as_tensor(np.asarray(v)) for f, v in ref.items()}
+    torch.save(out, os.path.join(tmp, "cross.pt"))
+
+
+def _cross_results() -> dict:
+    """``cross_part``'s results (joining the child, starting it if no
+    earlier phase did), loaded once."""
+    import torch
+    if "cross" not in KEPT:
+        _service_start(("cross_device",))
+        try:
+            _service_join("cross")
+            KEPT["cross"] = torch.load(os.path.join(_kid_dir("cross"),
+                                                    "cross.pt"))
+        finally:
+            _service_stop(KID_GROUPS["cross_device"])
+    return KEPT["cross"]
+
+
+def _on_card(fields: dict, like):
+    """A saved result's fields as a namespace on ``like``'s device."""
+    import types
+    return types.SimpleNamespace(**{
+        f: None if v is None else v.to(like.device)
+        for f, v in fields.items()})
+
+
+def phase_cross_device() -> None:
+    """The CPU (twin) runs of ``cross_part`` against the card (kernel) on
+    the same inputs: the first 1,000 jobs of the campaign, 500 of the EASY
+    stream and EVENT_TWIN_J of the event runs (a) and (d), placements and
+    per-job values exact, reductions over jobs within rtol 1e-6 (torch.sum
+    adds in another order on each device)."""
+    cpu_runs = _cross_results()
+    banded = ("total_energy", "total_wait", "slowdown_sum")
+    fcfs = ("system", "tier", "nodes", "start", "finish", "wait", "energy",
+            "runtime", "C_tab", "T_tab", "runs", "busy", "makespan",
+            "max_wait", "idle_energy") + banded
+    for name, w, kw in _cross_cases():
         gpu = _campaign(w, **kw)
-        worst = _same(cpu, gpu, EVENT_FIELDS, banded, f"cpu/cuda {run}")
-        emit("cross_device", run=run, jobs=EVENT_TWIN_J,
-             exact="all but " + ",".join(banded),
-             worst_rel_reduction=worst,
-             peak_power=gpu.peak_power.flatten().tolist())
+        cpu = _on_card(cpu_runs[name], gpu.makespan)
+        totals = kw.get("totals_only", False)
+        fields = (fcfs if name.startswith("fcfs.") else
+                  EASY_FIELDS if name.startswith("easy.") else EVENT_FIELDS)
+        worst = _same(cpu, gpu, fields, () if totals else banded,
+                      f"cpu/cuda {name}")
+        line = dict(jobs=len(w.prog),
+                    exact="all" if totals else "all but " + ",".join(banded),
+                    worst_rel_reduction=worst)
+        if name.startswith("fcfs."):
+            line["totals_only"] = totals
+        elif name.startswith("easy."):
+            line.update(queue=EASY_QUEUE, totals_only=totals,
+                        n_backfilled=gpu.n_backfilled.flatten().tolist())
+        else:
+            line.update(run=name,
+                        peak_power=gpu.peak_power.flatten().tolist())
+        emit("cross_device", **line)
 
 
 #: the EASY campaign: the reference ablation's contended SWF stream
@@ -1724,8 +1809,8 @@ def phase_easy_campaign(counters: dict) -> dict:
     import numpy as np
     import torch
     from repro_torch.kernels.kth_free import kth_free_cuda
-    w = _easy_stream()
-    J, W, B = CAMPAIGN_J, EASY_WINDOW, len(CAMPAIGN_KS) * len(CAMPAIGN_SEEDS)
+    w = _prefix(_easy_stream(), CAMPAIGN_RUN_J)
+    J, W, B = CAMPAIGN_RUN_J, EASY_WINDOW, len(CAMPAIGN_KS) * len(CAMPAIGN_SEEDS)
     steps = J + W
 
     # the main path: every count to 0 just before, read just after
@@ -1817,12 +1902,12 @@ def phase_easy_campaign(counters: dict) -> dict:
 
 #: the event-granular cores: the documented campaign's stream cut to
 #: EVENT_J jobs (from 10,000, for the script's time: run (a) takes 7J
-#: steps and each run's twins as many again); the example's capped
-#: conservative campaign (``examples/multi_cluster_campaign.py``), its
-#: ``totals_only`` and uncapped twins, and ``cross_device``, on the first
-#: EVENT_TWIN_J jobs
-EVENT_J = 500
-EVENT_TWIN_J = 500
+#: steps and each run's twins as many again; 500 until PR 26); the
+#: example's capped conservative campaign
+#: (``examples/multi_cluster_campaign.py``), its ``totals_only`` and
+#: uncapped twins, and ``cross_device``, on the first EVENT_TWIN_J jobs
+EVENT_J = 250
+EVENT_TWIN_J = 250
 EVENT_FCFS = f"fcfs:window={EASY_WINDOW}"
 CONS_QUEUE = f"conservative:window={EASY_WINDOW}"
 STRAGGLERS = dict(straggler_prob=0.05)
@@ -1837,12 +1922,12 @@ FCFS_FIELDS = ("system", "tier", "nodes", "start", "finish", "wait",
 EVENT_FIELDS = EASY_FIELDS + ("peak_power", "capped_delay")
 
 
-def _event_stream():
-    """The campaign phase's Poisson NPB stream, its first EVENT_J jobs."""
+def _event_stream(n=EVENT_J):
+    """The campaign phase's Poisson NPB stream, its first ``n`` jobs."""
     from repro_torch.core import JSCC_SYSTEMS
     from repro_torch.data import make_stream_workload
     return _prefix(make_stream_workload(JSCC_SYSTEMS, CAMPAIGN_J, "poisson",
-                                        rate=0.5, seed=0), EVENT_J)
+                                        rate=0.5, seed=0), n)
 
 
 def _cap_stream():
@@ -2142,7 +2227,9 @@ SCALE_EASY_J = 1_000
 SCALE_EVENT_J = 200
 #: (c): the reference's million-job configuration
 #: (``tests/test_sharded_campaign.py:157-181``) on a 64-lane grid, its
-#: J cut from 10^6 to 3 x 10^4 for the script's time
+#: J cut from 10^6 to 3 x 10^4 for the script's time (at 5,000 and
+#: 15,000 the peak grew 3.45 MB, over the [64, 10^4] array of that
+#: gate; from 10^4 on it is flat: PERF.md, PR 26)
 SCALE_JS = (10_000, 30_000)
 SCALE_CHUNK = 4096
 SCALE_KS = 16
@@ -2310,8 +2397,8 @@ def _suppz_round(device, path) -> list:
 def scale_part() -> dict:
     """Part (c) of ``campaign_scale``, run in a process of its own beside
     the rest of the phase (its peak memory is that process's alone): the
-    reference's million-job configuration at J = 10,000 and 30,000,
-    chunked, and at 10,000 monolithic."""
+    reference's million-job configuration at J = SCALE_JS, chunked, and
+    at the first of them monolithic."""
     import torch
     from repro_torch.data import synthetic_swf_arrays, workload_from_arrays
     scale = {}
@@ -2344,10 +2431,44 @@ def scale_part() -> dict:
                 chunk=SCALE_CHUNK)
 
 
+#: ``campaign_scale``'s children (c) and (d): (log directory, {name:
+#: (start time, output files, process)}), started by ``_scale_start``
+SCALE_KIDS: dict = {}
+
+
+def _scale_start():
+    """Start ``campaign_scale``'s children (c) and (d) once, their output
+    to files (a full pipe never stalls them): from ``event_campaign`` on
+    in a whole run, so that the million-job configuration runs beside
+    it; ``campaign_scale`` joins them."""
+    import tempfile
+    if not SCALE_KIDS:
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        children = {
+            "scale": [sys.executable, "-c", "import json, chip_smoke; "
+                      "print(json.dumps(chip_smoke.scale_part()))"],
+            "torch_quickstart.py": [sys.executable,
+                                    "examples/torch_quickstart.py"],
+            "torch_multi_cluster_campaign.py": [
+                sys.executable, "examples/torch_multi_cluster_campaign.py",
+                "--jobs", "4", "--sim-jobs", "500"],
+        }
+        logs = tempfile.TemporaryDirectory()
+        procs = {}
+        for name, argv in children.items():
+            files = [open(os.path.join(logs.name, f"{name}.{x}"), "w+")
+                     for x in ("out", "err")]
+            procs[name] = (time.perf_counter(), files, subprocess.Popen(
+                argv, cwd=ROOT, env=env, text=True, stdout=files[0],
+                stderr=files[1]))
+        SCALE_KIDS.update(logs=logs, procs=procs)
+    return SCALE_KIDS["logs"], SCALE_KIDS["procs"]
+
+
 def phase_campaign_scale(counters: dict) -> dict:
     """Campaign scale on the card.  (a) each core chunked against its
     monolithic run, bit for bit on every field: FCFS on the campaign
-    phase's own 10,000-job kernel run (chunk 4,093), EASY window 16 on
+    phase's own 5,000-job kernel run (chunk 4,093), EASY window 16 on
     the first 1,000 jobs of the EASY stream (chunk 97, full and
     ``totals_only``), the event core's FCFS with failure re-queue on the
     first 200 jobs of the event stream (chunk 129), the capped
@@ -2363,33 +2484,16 @@ def phase_campaign_scale(counters: dict) -> dict:
     ``examples/torch_quickstart.py`` and
     ``examples/torch_multi_cluster_campaign.py --jobs 4 --sim-jobs 500``
     exit 0 on the card; a SUPPZ round decides as on the CPU.  (c) and
-    (d) run in processes of their own, started first, beside (a), (b)
-    and, last, the launches and host syncs chunked against monolithic on
-    short prefixes (every step is host dispatch, and the card is idle
-    most of the time)."""
+    (d) run in processes of their own (``_scale_start``), started with
+    ``event_campaign`` in a whole run, beside it, (a), (b) and, last, the
+    launches and host syncs chunked against monolithic on short prefixes
+    (every step is host dispatch, and the card is idle most of the
+    time)."""
     import tempfile
     import torch
     from repro_torch.core import events
     out = {}
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    children = {
-        "scale": [sys.executable, "-c", "import json, chip_smoke; "
-                  "print(json.dumps(chip_smoke.scale_part()))"],
-        "torch_quickstart.py": [sys.executable,
-                                "examples/torch_quickstart.py"],
-        "torch_multi_cluster_campaign.py": [
-            sys.executable, "examples/torch_multi_cluster_campaign.py",
-            "--jobs", "4", "--sim-jobs", "500"],
-    }
-    # their output goes to files, so that a full pipe never stalls them
-    logs = tempfile.TemporaryDirectory()
-    procs = {}
-    for name, argv in children.items():
-        files = [open(os.path.join(logs.name, f"{name}.{x}"), "w+")
-                 for x in ("out", "err")]
-        procs[name] = (time.perf_counter(), files, subprocess.Popen(
-            argv, cwd=ROOT, env=env, text=True, stdout=files[0],
-            stderr=files[1]))
+    _, procs = _scale_start()
     try:
         # the sync detector's first use in a process counts one more
         probe = _sync_count(lambda: torch.ones(1, device="cuda").sum()
@@ -2403,8 +2507,9 @@ def phase_campaign_scale(counters: dict) -> dict:
         else:
             from repro_torch.core import JSCC_SYSTEMS
             from repro_torch.data import make_stream_workload
-            w = make_stream_workload(JSCC_SYSTEMS, CAMPAIGN_J, "poisson",
-                                     rate=0.5, seed=0)
+            w = _prefix(make_stream_workload(JSCC_SYSTEMS, CAMPAIGN_J,
+                                             "poisson", rate=0.5, seed=0),
+                        CAMPAIGN_RUN_J)
             mono = None
         we = _prefix(_easy_stream(), SCALE_EASY_J)
         wv = _prefix(_event_stream(), SCALE_EVENT_J)
@@ -2412,7 +2517,7 @@ def phase_campaign_scale(counters: dict) -> dict:
         pol_v, pol_c = _policy_of(EVENT_FCFS), _cap_policy()
         runs = {  # name: (workload, steps, kth_free calls a step, kwargs,
                   #        the profiled prefix: jobs, steps, chunk)
-            "fcfs": (w, CAMPAIGN_J, 1, {}, (60, 60, 25)),
+            "fcfs": (w, CAMPAIGN_RUN_J, 1, {}, (60, 60, 25)),
             "easy": (we, SCALE_EASY_J + EASY_WINDOW, 2,
                      dict(queue=EASY_QUEUE), (60, 60 + EASY_WINDOW, 25)),
             "events": (wv, events.step_count(wv, pol_v, True), 1,
@@ -2474,12 +2579,7 @@ def phase_campaign_scale(counters: dict) -> dict:
                   f"{name} exited {proc.returncode}: {ferr.read()[-2000:]}")
             done[name] = (time.perf_counter() - t0, fout.read().splitlines())
     finally:
-        for _, files, proc in procs.values():
-            proc.kill()
-            proc.wait()
-            for f in files:
-                f.close()
-        logs.cleanup()
+        _scale_stop()
     seconds, lines = done.pop("scale")
     out["scale"] = dict(json.loads(lines[-1]), seconds_wall=seconds)
     emit("campaign_scale", run="scale", **out["scale"])
@@ -2490,6 +2590,20 @@ def phase_campaign_scale(counters: dict) -> dict:
         suppz_systems=sorted({d["system"] for d in on_card}))
     emit("campaign_scale", run="entry_points", **out["entry_points"])
     return out
+
+
+def _scale_stop() -> None:
+    """Stop ``campaign_scale``'s children still running; remove their
+    files."""
+    if SCALE_KIDS:
+        for _, files, proc in SCALE_KIDS["procs"].values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            for f in files:
+                f.close()
+        SCALE_KIDS.pop("logs").cleanup()
+        SCALE_KIDS.clear()
 
 
 def _cli(argv):
@@ -2631,7 +2745,7 @@ def _service_runs():
     from repro_torch.core import JSCC_SYSTEMS
     from repro_torch.data import (load_swf, swf_lines, synthetic_swf_arrays,
                                   workload_from_trace)
-    poisson = _prefix(_event_stream(), SERVICE_C)
+    poisson = _event_stream(SERVICE_C)
     swf = workload_from_trace(load_swf(swf_lines(
         *synthetic_swf_arrays(250, 11))), JSCC_SYSTEMS)
     return (("fcfs", poisson, EVENT_FCFS, CAMPAIGN_FAULTS, 1, None),
@@ -2665,17 +2779,18 @@ def service_batch_part(tmp: str) -> None:
     torch.save(out, os.path.join(tmp, "batch.pt"))
 
 
-#: the service phases' child processes, started before ``cross_device``
-#: (which, like ``schedule_cli`` after it, reports no times), so that the
-#: batch runs, the independent sessions and the CLI runs go beside those
-#: phases and not beside the live sessions and pools whose latency the
-#: service phases measure: by name, (start time, output files, process,
+#: the service phases' child processes, started before ``campaign_scale``
+#: (whose times compare nothing later; ``cross_device`` and
+#: ``schedule_cli`` after it report none), so that the batch runs, the
+#: independent sessions and the CLI runs go beside those phases and not
+#: beside the live sessions and pools whose latency the service phases
+#: measure: by name, (start time, output files, process,
 #: its temporary directory)
 SERVICE_KIDS: dict = {}
 #: the children each service phase reads
 KID_GROUPS = {"service": ("batch", "cli"), "service_pool": ("pool",
                                                              "pool_cli"),
-              "event_campaign": ("event",)}
+              "event_campaign": ("event",), "cross_device": ("cross",)}
 
 
 def _kid_command(name: str, tmp: str) -> tuple:
@@ -2689,7 +2804,7 @@ def _kid_command(name: str, tmp: str) -> tuple:
                 "\n".join(json.dumps(r) for r in SERVICE_REQUESTS))
     return part({"batch": "service_batch_part", "pool": "service_pool_part",
                  "pool_cli": "service_pool_cli_part",
-                 "event": "event_part"}[name]), ""
+                 "event": "event_part", "cross": "cross_part"}[name]), ""
 
 
 def _service_start(phases=tuple(KID_GROUPS)) -> None:
@@ -3001,7 +3116,7 @@ POOL_CLI_HEAD = 4
 def _pool_workload():
     """The pool's catalog and arrival grid: the campaign stream's first
     SERVICE_C jobs (the service phase's Poisson stream)."""
-    return _prefix(_event_stream(), SERVICE_C)
+    return _event_stream(SERVICE_C)
 
 
 def _pool_streams(w, n):
@@ -3819,6 +3934,7 @@ def phase_serve(counters: dict, phase: str) -> None:
     logits, plain, t_prefill, t_plain, launches, diff = _prefill_pair(
         api, params, batch, counted, wrappers, kernel, band)
     _count(counters, kernel, phase, launches[kernel])
+    KEPT[f"{phase}_prefill_s"] = t_prefill
     route = wrappers[kernel].last_route
     check(route == "tensor-core", f"the bf16 prefill took the {route} "
           f"route of {kernel}")
@@ -5188,6 +5304,246 @@ def phase_train(counters: dict) -> dict:
     return row
 
 
+#: the mirror phase: the campaign phase's stream cut to MIRROR_J jobs over
+#: its K grid, faults off (the float64 mirror covers the deterministic
+#: path), warm start; each run is (SimConfig fields, simulate_py keywords)
+MIRROR_J = 300
+MIRROR_RUNS = {
+    "fcfs": (dict(mode="paper"), {}),
+    "easy": (dict(mode="paper", queue="easy_backfill",
+                  queue_window=EASY_WINDOW), {}),
+    "event_easy": (dict(mode="paper", queue="easy_backfill",
+                        queue_window=EASY_WINDOW, core="events"), {}),
+    "conservative": (dict(mode="paper", queue="conservative",
+                          queue_window=EASY_WINDOW),
+                     {"check_reservations": True}),
+    "capped": (dict(mode="paper", power_cap=52e3), {}),
+    "dvfs": (dict(mode="dvfs_paper", core="events"), {}),
+}
+#: per-job fields and totals whose worst relative error is printed
+MIRROR_REL = ("start", "finish", "wait", "energy", "runtime", "total_energy",
+              "makespan", "total_wait", "max_wait", "peak_power",
+              "idle_energy")
+
+
+def _mirror_rel(card, ref, i, worst) -> None:
+    """Fold lane ``i``'s relative error against the mirror's dict ``ref``
+    into ``worst`` (field -> max)."""
+    import numpy as np
+    for f in MIRROR_REL:
+        a = getattr(card, f)[i].double().cpu().numpy()
+        b = np.asarray(ref[f], np.float64)
+        if not np.isfinite(b).all():
+            continue
+        rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-30)
+        worst[f] = max(worst.get(f, 0.0), float(np.max(rel)))
+
+
+def _mirror_stream():
+    """The campaign stream's first MIRROR_J jobs."""
+    from repro_torch.core import JSCC_SYSTEMS
+    from repro_torch.data import make_stream_workload
+    return _prefix(make_stream_workload(JSCC_SYSTEMS, CAMPAIGN_J, "poisson",
+                                        rate=0.5, seed=0), MIRROR_J)
+
+
+def _mirror_sched(fields):
+    """(the run's warm ``SimConfig`` at the policy's K, a builder of its
+    ``Scheduler`` over the K grid on a device: None is the card)."""
+    import numpy as np
+    from repro_torch.core import Scheduler, SimConfig
+    cfg0 = SimConfig(warm_start=True, **fields)
+    ks = np.array(CAMPAIGN_KS, np.float32)
+    return cfg0, lambda dev=None: Scheduler(
+        cfg0.policy().with_params(k=ks), warm_start=True,
+        engine=fields.get("core") or None, device=dev)
+
+
+def phase_mirror(counters: dict) -> dict:
+    """The card's runs against the port's float64 mirror ``simulate_py``
+    (computed on the host by ``cross_part``), at the reference's
+    differential bands (``tests/test_differential_sim.py:34-46``): systems
+    exact in every lane; energy, start, total energy and makespan within
+    rtol 1e-5 (start atol 1e-3) in every lane whose backfill flags equal
+    the mirror's.  A lane whose flags differ is a near-tie the f32 event
+    clock breaks otherwise than the float64 mirror, as the reference's
+    engine does against the reference's mirror on this stream (PERF.md):
+    there the card's run must equal the port's CPU run on every field
+    (sums within rtol 1e-6)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.kth_free import kth_free_cuda
+    w = _mirror_stream()
+    host = _cross_results()
+    out = {}
+    for name, (fields, _) in MIRROR_RUNS.items():
+        _, sched = _mirror_sched(fields)
+        kth_free_cuda.launches = 0
+        t0 = time.perf_counter()
+        card = sched().run(w)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        _count(counters, "kth_free", f"mirror_{name}",
+               kth_free_cuda.launches)
+        worst, departed = {}, []
+        for i, k in enumerate(CAMPAIGN_KS):
+            ref = {f: v.numpy() for f, v in host[f"mirror.{name}.{k}"]
+                   .items()}
+            check(np.array_equal(card.system[i].cpu().numpy(),
+                                 ref["system"]),
+                  f"mirror {name} K={k}: systems differ")
+            if not np.array_equal(card.backfilled[i].cpu().numpy(),
+                                  ref["backfilled"]):
+                departed.append(float(k))
+                continue
+            np.testing.assert_allclose(card.energy[i].cpu().numpy(),
+                                       ref["energy"], rtol=1e-5)
+            np.testing.assert_allclose(card.start[i].cpu().numpy(),
+                                       ref["start"], rtol=1e-5, atol=1e-3)
+            for f in ("total_energy", "makespan"):
+                np.testing.assert_allclose(float(getattr(card, f)[i]),
+                                           float(ref[f]), rtol=1e-5)
+            _mirror_rel(card, ref, i, worst)
+        if departed:
+            _same(_on_card(host[f"mirror.{name}.cpu"], card.makespan), card,
+                  EVENT_FIELDS, ("total_energy", "total_wait",
+                                 "slowdown_sum"), f"mirror {name} cpu/cuda")
+        out[name] = dict(card_s=t_card,
+                         kth_free_launches=counters["by_path"]["kth_free"]
+                         [f"mirror_{name}"],
+                         lanes_departed_k=departed,
+                         cpu_equal_checked=bool(departed),
+                         worst_rel_error=worst)
+    emit("mirror", jobs=MIRROR_J, ks=list(CAMPAIGN_KS), runs=out)
+    return out
+
+
+#: the unrolled EASY loop: the ablation's contended SWF stream cut to
+#: UNROLLED_J jobs, window 16, K x seeds with the campaign's faults
+UNROLLED_J = 300
+UNROLLED_KS = (0.0, 0.1, 0.2)
+UNROLLED_SEEDS = (0, 1)
+UNROLLED_TRACE_STEPS = 50
+UNROLLED_FIELDS = ("system", "tier", "nodes", "start", "backfilled", "runs",
+                   "n_backfilled")
+
+
+def phase_easy_unrolled(counters: dict) -> dict:
+    """``easy_eval="unrolled"`` (the reference's per-slot loop) against
+    the batched step on the card: 2 W + 2 kth_free launches a step against
+    2, placements and starts exact, the learned tables within the
+    reference's own batched-against-unrolled band (C_tab 2.3e-10, T_tab
+    7.6e-6); ms a step of both, and the unrolled step's device idle share
+    over a 50-step trace of the device alone."""
+    import numpy as np
+    import torch
+    from repro_torch.core.policy import apply_queue_spec, make_policy
+    from repro_torch.kernels.kth_free import kth_free_cuda
+    w = _prefix(_easy_stream(), UNROLLED_J)
+    W = EASY_WINDOW
+    steps = UNROLLED_J + W
+    pol = apply_queue_spec(make_policy(
+        "paper", k=np.array(UNROLLED_KS, np.float32)), EASY_QUEUE)
+    kw = dict(policy=pol, seeds=UNROLLED_SEEDS)
+
+    kth_free_cuda.launches = 0
+    un, t_un, _ = _timed_campaign(w, easy_eval="unrolled", **kw)
+    n_un = kth_free_cuda.launches
+    _count(counters, "kth_free", "easy_unrolled", n_un)
+    check(n_un == (2 * W + 2) * steps,
+          f"unrolled kth_free launches {n_un} != (2 W + 2) (J + W) = "
+          f"{(2 * W + 2) * steps}")
+    bat, t_bat, n_bat = _timed_campaign(w, **kw)
+    check(n_bat == 2 * steps, f"batched kth_free launches {n_bat}")
+    for f in UNROLLED_FIELDS:
+        check(torch.equal(getattr(un, f), getattr(bat, f)),
+              f"unrolled != batched on {f}")
+    check(bool((un.n_backfilled > 0).all()),
+          f"a lane never backfilled: {un.n_backfilled.tolist()}")
+    tables = {}
+    for f, band in (("C_tab", 2.3e-10), ("T_tab", 7.6e-6)):
+        d = float((getattr(un, f).double() - getattr(bat, f).double())
+                  .abs().max())
+        check(d <= band, f"unrolled {f} departs by {d} > {band}")
+        tables[f] = d
+    finish_ulps = float(((un.finish - bat.finish).abs()
+                         / torch.finfo(torch.float32).eps
+                         / bat.finish.abs()).max())
+
+    # the idle share of a 50-step run: its wall time against the device
+    # time of the same run traced alone (the profiler's cost not counted)
+    small = _prefix(w, UNROLLED_TRACE_STEPS - W)
+    _campaign(small, easy_eval="unrolled", **kw)
+    _, t_small, _ = _timed_campaign(small, easy_eval="unrolled", **kw)
+    per_step, busy_us, by_kernel = _launches_per_step(
+        small, steps=UNROLLED_TRACE_STEPS, easy_eval="unrolled", **kw)
+    step_us = t_small / UNROLLED_TRACE_STEPS * 1e6
+    res = dict(
+        jobs=UNROLLED_J, window=W, lanes=len(UNROLLED_KS) * len(UNROLLED_SEEDS),
+        steps=steps, kth_free_launches=n_un,
+        kth_free_launches_per_step=n_un / steps,
+        batched_kth_free_launches_per_step=n_bat / steps,
+        ms_per_step=t_un / steps * 1e3, batched_ms_per_step=t_bat / steps * 1e3,
+        n_backfilled=un.n_backfilled.flatten().tolist(),
+        tables_max_abs_diff=tables,
+        finish_max_rel_diff_in_eps=finish_ulps,
+        trace_steps=UNROLLED_TRACE_STEPS, trace_ms_per_step=step_us / 1e3,
+        cuda_launches_per_step=per_step, device_busy_us_per_step=busy_us,
+        device_us_per_step_by_kernel=by_kernel,
+        device_idle_share=(None if busy_us is None
+                           else 1.0 - busy_us / step_us))
+    emit("easy_unrolled", **res)
+    return res
+
+
+def phase_roofline() -> dict:
+    """Host only: the cost counter (``utils/cost.py``) on the 4 x 4,096
+    bf16 prefills that ``serve`` and ``serve_ssm`` time, on one card (a
+    1 x 1 mesh): FLOPs, HBM bytes and their bound at the H100's datasheet
+    peaks (``launch/roofline.H100``), and the prefill wall time those
+    phases measured as a share of that bound (null when they did not run
+    in this process)."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.mesh import make_elastic_mesh
+    from repro_torch.launch.roofline import H100
+    from repro_torch.launch.specs import build_all_specs
+    from repro_torch.models import build_model
+    from repro_torch.utils.cost import cell_cost
+    shape = ShapeConfig("serve_prefill", seq_len=4096, global_batch=4,
+                        kind="prefill")
+    mesh = make_elastic_mesh(1, model_parallel=1, device="cpu")
+    out = {}
+    for phase, (arch, kernel, _) in SERVE_CELLS.items():
+        t0 = time.perf_counter()
+        api = build_model(get_config(arch), device="cpu")
+        cost = cell_cost(api, shape, build_all_specs(api, shape, mesh,
+                                                     multi_pod=False), mesh)
+        count_s = time.perf_counter() - t0
+        t_c = cost["flops_per_device"] / H100.flops
+        t_m = cost["mem_bytes_per_device"] / H100.hbm_bw
+        bound = max(t_c, t_m)
+        wall = KEPT.get(f"{phase}_prefill_s")
+        check(cost["flops_per_device"] > 0 and bound > 0,
+              f"roofline {arch}: empty count")
+        out[arch] = dict(
+            shape=[4, 4096], dtype=api.cfg.dtype, kernel=kernel,
+            flops=cost["flops_per_device"],
+            attention_flops=cost["attn_flops_total"],
+            hbm_bytes=cost["mem_bytes_per_device"],
+            hbm_bytes_by_part=cost["mem_bytes_by_part"],
+            t_compute_s=t_c, t_memory_s=t_m, bound_s=bound,
+            bound_by="operations" if t_c >= t_m else "bytes",
+            prefill_wall_s=wall,
+            share_of_bound=None if wall is None else bound / wall,
+            achieved_flops_per_s=(None if wall is None
+                                  else cost["flops_per_device"] / wall),
+            count_s=count_s)
+    emit("roofline", peaks={"flops": H100.flops, "hbm_bw": H100.hbm_bw,
+                            "source": "NVIDIA H100 SXM datasheet"},
+         cells=out)
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5217,6 +5573,8 @@ def _phases(counters: dict) -> dict:
         "service_pool": lambda: phase_service_pool(counters),
         "workloads": lambda: phase_workloads(counters),
         "executed_campaign": phase_executed_campaign,
+        "mirror": lambda: phase_mirror(counters),
+        "easy_unrolled": lambda: phase_easy_unrolled(counters),
         "serve": lambda: phase_serve(counters, "serve"),
         "serve_ssm": lambda: phase_serve(counters, "serve_ssm"),
         "serve_moe": lambda: phase_serve_moe(counters),
@@ -5224,6 +5582,7 @@ def _phases(counters: dict) -> dict:
         "serve_encdec": lambda: phase_serve_encdec(counters),
         "serve_vlm": lambda: phase_serve_vlm(counters),
         "train": lambda: phase_train(counters),
+        "roofline": phase_roofline,
     }
 
 
@@ -5252,18 +5611,27 @@ def main(argv=None) -> int:
     counters: dict = {}
     results, phase_s = {}, {}
     try:
+        if only is None or {"cross_device", "mirror"} & set(only):
+            _service_start(("cross_device",))   # the host's twins, early
         for name, fn in _phases(counters).items():
             if only is None or name in only:
                 groups = [p for p in KID_GROUPS
                           if only is None or p in only]
-                if name in ("cross_device", "schedule_cli") and groups:
+                if name in ("campaign_scale", "cross_device",
+                            "schedule_cli") and groups:
+                    # the children run on the card beside these phases,
+                    # which time nothing the later phases compare
                     _service_start(groups)
+                if name == "event_campaign" and (
+                        only is None or "campaign_scale" in only):
+                    _scale_start()      # the million-job run, beside it
                 t0 = time.perf_counter()
                 results[name] = fn()
                 phase_s[name] = time.perf_counter() - t0
         _event_finish()          # if no phase after event_campaign did
     finally:
         _service_stop()
+        _scale_stop()
     if only is not None:
         emit("done", seconds=time.perf_counter() - t_start, only=only,
              phase_seconds=phase_s)
@@ -5335,7 +5703,10 @@ def main(argv=None) -> int:
              n: v["wall_us_per_step"] for n, v
              in results["service_pool"]["by_n"].items()},
          train_ms_per_step={cell: results["train"][cell]["ms_per_step"]
-                            for cell in (*TRAIN_CELLS, "data_parallel")})
+                            for cell in (*TRAIN_CELLS, "data_parallel")},
+         easy_unrolled_ms_per_step=results["easy_unrolled"]["ms_per_step"],
+         prefill_share_of_bound={arch: v["share_of_bound"] for arch, v
+                                 in results["roofline"].items()})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

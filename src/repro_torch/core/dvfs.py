@@ -9,7 +9,8 @@ draw are unchanged.  Per tier and the phase model::
     E(phi) = E + E_comp * (phi^2 - 1) + n_req * idle_w * T_comp * (1/phi - 1)
 
 The unit tier's entries are the base tables bit for bit.  ``tier_tables``
-runs on float32 tensors (the engine); the table helpers stay numpy.
+runs on float32 tensors (the engine); ``tier_tables_py`` is its float64
+numpy twin (the differential mirror); the table helpers stay numpy.
 """
 
 from __future__ import annotations
@@ -71,6 +72,32 @@ def tier_tables(arrs: dict, tiers: tuple) -> dict:
     return _tier_model(one(arrs["T_true"]), one(arrs["E_true"]),
                        one(arrs["C_true"]), one(arrs["w_pow"]),
                        one(arrs["T_comp"]), one(arrs["E_comp"]), n_idle, phi)
+
+
+def tier_tables_py(w, tiers: tuple) -> dict:
+    """float64 numpy twin of ``tier_tables`` for the differential mirror
+    (``core.simulator.simulate_py``), from a ``Workload`` of host arrays:
+    the same [P, F, S] tables, with no fused rounding."""
+    phi = np.asarray(tiers, np.float64)[None, :, None]
+    Tc, Ec = phase_split(w)
+    idle = (np.zeros(len(w.n_nodes)) if w.idle_w is None
+            else np.asarray(w.idle_w, np.float64))
+    T = np.asarray(w.T_true, np.float64)
+    E = np.asarray(w.E_true, np.float64)
+    one = lambda x: np.asarray(x, np.float64)[:, None, :]  # noqa: E731
+    T, E, C = one(T), one(E), one(w.C_true)
+    Tc, Ec = one(Tc), one(Ec)
+    n_idle = one(np.asarray(w.n_req, np.float64) * idle[None, :])
+    w_pow = E / np.maximum(T, _TINY)
+    unit = phi == 1.0
+    stretch = Tc * (1.0 / phi - 1.0)
+    T_f = np.where(unit, T, T + stretch)
+    E_f = np.where(unit, E, E + Ec * (phi ** 2 - 1.0) + n_idle * stretch)
+    r_t = np.where(unit, 1.0, T_f / np.maximum(T, _TINY))
+    r_c = np.where(unit, 1.0, E_f / np.maximum(E, _TINY))
+    return {"T": T_f, "E": E_f, "C": np.where(unit, C, C * r_c),
+            "rt": r_t, "rc": r_c,
+            "w": np.where(unit, w_pow, E_f / np.maximum(T_f, _TINY))}
 
 
 def npb_phase_split(systems, programs, N) -> tuple:

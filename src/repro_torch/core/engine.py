@@ -38,8 +38,8 @@ same, so chunked results are bit-identical; with ``totals_only`` no
 tensor beside the lanes has a J-sized dimension.  ``shards=`` splits the
 lanes over devices (``_lane_split``).
 
-``easy_eval="unrolled"`` raises ``NotImplementedError`` naming ROADMAP
-item 15.
+``easy_eval="unrolled"`` runs the reference's per-slot EASY loop, the
+batched step's bit-identity reference (``_easy_run``).
 """
 
 from __future__ import annotations
@@ -296,10 +296,11 @@ def _push_out_of_outage(avail, outage):
     return avail
 
 
-def _earliest(node_free, nreq, arr: float, placer, outage):
+def _earliest(node_free, nreq, arr, placer, outage):
     """(kth free time, earliest start) per lane and system for one job:
-    the kth-free radix select, floored at the arrival and pushed out of
-    any open maintenance window."""
+    the kth-free radix select, floored at the arrival (a float, or a
+    [B, 1] tensor of each lane's) and pushed out of any open maintenance
+    window."""
     kth = kth_free_time(node_free, nreq, force=placer)
     avail = kth.clamp_min(arr)
     if outage is not None:
@@ -529,10 +530,11 @@ def _job_results(arrs, st, w, sel_out, start, tabs, factor, *, busy=None,
                  fused_finish: bool, backfilled=None) -> dict:
     """The full path's result fields from each job's candidate index
     ``sel_out``, start and fault ``factor`` [B, J], recomputed with the
-    step's own elementwise ops (so the bits equal the step's).  ``finish`` is one
-    fused multiply-add where the core's step fuses it (FCFS) and a plain
-    add where it does not (EASY).  ``busy=None`` accumulates the busy
-    node-seconds here, in job order as the reference's scatter-add."""
+    step's own elementwise ops (so the bits equal the step's).
+    ``finish`` is one fused multiply-add where the core's step fuses it
+    (FCFS, unrolled EASY) and a plain add where it does not (batched
+    EASY).  ``busy=None`` accumulates the busy node-seconds here, in job
+    order as the reference's scatter-add."""
     dev, S, J, B = st["dev"], st["S"], st["J"], st["B"]
     prog = torch.as_tensor(np.asarray(w.prog).astype(np.int64),
                            device=dev).expand(B, J)
@@ -575,8 +577,8 @@ def _earliest_shared(node_free, nreq_rows, arr_col, placer, outage):
 
 
 def _easy_run(arrs: dict, w: Workload, policy: Policy, lanes: dict, *,
-              warm_start: bool, placer, totals_only: bool,
-              chunk=None) -> dict:
+              warm_start: bool, placer, totals_only: bool, chunk=None,
+              easy_eval: str = "batched") -> dict:
     """EASY backfilling over a bounded pending window: J + W steps, every
     lane in step, and the result fields with a leading [B] dimension.
 
@@ -599,7 +601,18 @@ def _easy_run(arrs: dict, w: Workload, policy: Policy, lanes: dict, *,
     Per-job outputs are scattered to arrival order as they are placed.
     A chunk of steps reads its draws at ``_window_ids``: a head can wait
     behind any number of backfilled jobs, so the pending jobs are not a
-    range of the stream."""
+    range of the stream.
+
+    ``easy_eval="unrolled"`` runs the reference's bit-identity reference
+    for the batched step instead (``unrolled_step``): slot by slot, a
+    selection, a trial allocation and the head's recheck, 2 W + 2
+    kth-free calls a step.  It predates the tier axis, so a tiered policy
+    raises ``ValueError``, as in the reference."""
+    if policy.tiered and easy_eval != "batched":
+        raise ValueError("freq_tiers requires easy_eval='batched' (the "
+                         "unrolled loop predates the tier axis and exists "
+                         "only as the single-tier bit-identity reference)")
+    unrolled = easy_eval == "unrolled"
     st = _setup(arrs, w, policy, lanes, warm_start)
     dev, P, S, N, J, B = (st[k] for k in ("dev", "P", "S", "N", "J", "B"))
     tiered, tt, truth, act = st["tiered"], st["tt"], st["truth"], st["act"]
@@ -608,15 +621,16 @@ def _easy_run(arrs: dict, w: Workload, policy: Policy, lanes: dict, *,
     W = int(policy.window)
     Wc = W + 1
     outage = arrs.get("outage")
-    n_req = arrs["n_req"]
+    n_req, T_true = arrs["n_req"], arrs["T_true"]
     C_pred, T_pred = arrs["C_pred"], arrs["T_pred"]
     arrival_h = np.asarray(w.arrival, np.float32)
     prog = torch.as_tensor(np.asarray(w.prog).astype(np.int64), device=dev)
     arrival = torch.as_tensor(arrival_h, device=dev)
-    # the head recheck's kth-free mode: every mode is bit-exact, so absent
-    # a placer the kernel on the card and one sort on the CPU
+    # the head recheck's kth-free mode (and the unrolled step's): every
+    # mode is bit-exact, so absent a placer the kernel on the card and one
+    # sort on the CPU
     recheck = placer or ("cuda" if node_free.is_cuda else "sort")
-    fuse_obs = tiered or B == 1
+    fuse_obs = (tiered or B == 1) and not unrolled
 
     slot = torch.arange(Wc, device=dev)
     pend = torch.full((B, Wc), J, dtype=torch.int64, device=dev)
@@ -639,6 +653,124 @@ def _easy_run(arrs: dict, w: Workload, policy: Policy, lanes: dict, *,
         start_out = torch.zeros((B, J + 1), dtype=F32, device=dev)
         bf_out = torch.zeros((B, J + 1), dtype=torch.bool, device=dev)
 
+    def sel_for(j, draws, K):
+        """The policy's system and the earliest start of job ids ``j``
+        [B] (the sentinel J evaluates job J - 1; one kth-free call in the
+        recheck's mode): (job, program, kth free [B, S], earliest start
+        [B, S], system [B])."""
+        jj = j.clamp_max(J - 1)
+        p = prog[jj]
+        kth, avail = _earliest(node_free, n_req[p], arrival[jj].unsqueeze(1),
+                               recheck, outage)
+        jd = _draw_cols(st, jj.unsqueeze(1))
+        ct = CT.gather(1, p.view(B, 1, 1, 1).expand(B, 1, S, 2)).squeeze(1)
+        sel = select(
+            pol, c_row=ct[..., 0], t_row=ct[..., 1],
+            runs_row=runs.gather(1, p.view(B, 1, 1).expand(B, 1, S))
+            .squeeze(1), avail_row=avail, k=K.gather(1, jd).squeeze(1),
+            c_pred_row=C_pred[p], t_pred_row=T_pred[p],
+            draw=None if draws is None else draws.gather(1, jd).squeeze(1))
+        return jj, p, kth, avail, sel
+
+    def unrolled_step(pend, head_valid, forced, now, factor, draws, K):
+        """The reference's unrolled candidate loop: the head's selection,
+        then slot by slot a selection, a trial allocation on a copy of the
+        node-free table and the recheck of the head's earliest start on
+        it, then the chosen job's selection again: 2 W + 2 kth-free calls
+        a step, every slot evaluated in every lane (masked)."""
+        at = lambda x, i: x.gather(1, i.unsqueeze(1)).squeeze(1)  # noqa: E731
+        hj, p_h, _, avail_h, sel_h = sel_for(pend[:, 0], draws, K)
+        r_h = at(avail_h, sel_h)
+        place_head = head_valid & (forced | (r_h <= now))
+        chosen = torch.where(place_head, 0, Wc)
+        may_backfill = head_valid & ~place_head
+        for ci in range(1, Wc):
+            b = pend[:, ci]
+            live = may_backfill & (b < J) & (chosen == Wc)
+            bj, p_b, kth_b, avail_b, sel_b = sel_for(b, draws, K)
+            fin_b = fma(T_true[p_b, sel_b], at(
+                factor, _draw_cols(st, bj.unsqueeze(1)).squeeze(1)),
+                at(avail_b, sel_b))
+            trial = node_free.clone()
+            _alloc_(trial, sel_b, at(kth_b, sel_b), n_req[p_b, sel_b], fin_b)
+            _, avail_h2 = _earliest(trial, n_req[p_h],
+                                    arrival[hj].unsqueeze(1), recheck, outage)
+            chosen = torch.where(live & (at(avail_h2, sel_h) <= r_h), ci,
+                                 chosen)
+        placed = chosen < Wc
+        j_pl = torch.where(placed, at(pend, chosen.clamp_max(Wc - 1)), J)
+        jj, p, kth, avail, sel = sel_for(j_pl, draws, K)
+        fac = at(factor, _draw_cols(st, jj.unsqueeze(1)).squeeze(1))
+        T_act = T_true[p, sel] * fac
+        start = at(avail, sel)
+        need = n_req[p, sel]
+        row = node_free.gather(1, sel.view(B, 1, 1).expand(B, 1, N))
+        new_row = _alloc_row(row.squeeze(1), at(kth, sel), need,
+                             fma(T_true[p, sel], fac, start))
+        return chosen, jj, p, sel, sel, fac, T_act, start, need, new_row
+
+    def batched_step(pend, head_valid, forced, now, factor, draws, K):
+        """Every slot scored against the same node-free table in one
+        batched pass (two kth-free calls): the chosen slot, its job and
+        placement, and its trial row of the chosen system."""
+        jjs = pend.clamp_max(J - 1)                              # [B, Wc]
+        jd = _draw_cols(st, jjs)
+        ps = prog[jjs]
+        nreq_rows = n_req[ps]                                    # [B, Wc, S]
+        kths, avails = _earliest_shared(node_free, nreq_rows,
+                                        arrival[jjs].unsqueeze(-1), placer,
+                                        outage)
+        ct = CT.gather(1, ps[..., None, None].expand(B, Wc, S, 2))
+        rows = (ct[..., 0], ct[..., 1],
+                runs.gather(1, ps.unsqueeze(-1).expand(B, Wc, S)), avails,
+                C_pred[ps], T_pred[ps])
+        if tiered:
+            rows = _tier_rows(tt, ps, *rows)
+        c_r, t_r, r_r, a_r, cp_r, tp_r = rows
+        sels_x = select_batched(
+            pol, c_rows=c_r, t_rows=t_r, runs_rows=r_r, avail_rows=a_r,
+            k=K.gather(1, jd), c_pred_rows=cp_r, t_pred_rows=tp_r,
+            draws=None if draws is None else draws.gather(1, jd))
+        sels = sels_x % S if tiered else sels_x                  # [B, Wc]
+        factors = factor.gather(1, jd)
+        on_sel = lambda x: x.gather(-1, sels.unsqueeze(-1)).squeeze(-1)  # noqa: E731
+        starts = on_sel(avails)
+        T_acts = act[ps, sels_x, 0] * factors
+        needs = on_sel(nreq_rows)
+        # each slot's trial allocation, on its own chosen row
+        trials = _alloc_row(
+            node_free.gather(1, sels.unsqueeze(-1).expand(B, Wc, N)),
+            on_sel(kths), needs, starts + T_acts)                # [B, Wc, N]
+
+        # the no-delay guard for every slot at once: a trial can delay
+        # the head only on the head's reserved system sel_h, so recheck
+        # each trial's row of it (untouched rows give r_h back exactly)
+        sel_h = sels[:, 0]
+        head_row = node_free.gather(1, sel_h.view(B, 1, 1).expand(B, 1, N))
+        trial_h = torch.where((sels == sel_h.unsqueeze(1)).unsqueeze(-1),
+                              trials, head_row)                  # [B, Wc, N]
+        kth_h2 = kth_free_time(trial_h, needs[:, :1].expand(B, Wc),
+                               force=recheck)
+        avail_h2 = torch.maximum(kth_h2, arrival[jjs[:, :1]])
+        if outage is not None:
+            avail_h2 = _push_out_of_outage(avail_h2,
+                                           outage[sel_h].unsqueeze(1))
+        r_h = starts[:, 0]                                       # reservation
+        place_head = head_valid & (forced | (r_h <= now))
+
+        # first fit: the least eligible slot index (Wc = none)
+        elig = torch.where(
+            slot == 0, place_head.unsqueeze(1),
+            (head_valid & ~place_head).unsqueeze(1) & (pend < J)
+            & (avail_h2 <= r_h.unsqueeze(1)))
+        chosen = torch.where(elig, slot, Wc).amin(1)             # [B]
+        ci = chosen.clamp_max(Wc - 1).unsqueeze(1)               # [B, 1]
+        pick = lambda x: x.gather(1, ci).squeeze(1)  # noqa: E731
+        return (chosen, pick(jjs), pick(ps), pick(sels_x), pick(sels),
+                pick(factors), pick(T_acts), pick(starts), pick(needs),
+                trials.gather(1, ci.unsqueeze(-1).expand(B, 1, N))
+                .squeeze(1))
+
     for lo, n_steps in _chunks(J + W, chunk):
         if chunk is not None:
             st["ids"] = _window_ids(pend, torch.arange(
@@ -657,76 +789,21 @@ def _easy_run(arrs: dict, w: Workload, policy: Policy, lanes: dict, *,
                 forced, now = no, BIG
             head_valid = pend[:, 0] < J
 
-            # score every slot against the same node-free table
-            jjs = pend.clamp_max(J - 1)                          # [B, Wc]
-            jd = _draw_cols(st, jjs)
-            ps = prog[jjs]
-            nreq_rows = n_req[ps]                                    # [B, Wc, S]
-            kths, avails = _earliest_shared(node_free, nreq_rows,
-                                            arrival[jjs].unsqueeze(-1), placer,
-                                            outage)
-            ct = CT.gather(1, ps[..., None, None].expand(B, Wc, S, 2))
-            rows = (ct[..., 0], ct[..., 1],
-                    runs.gather(1, ps.unsqueeze(-1).expand(B, Wc, S)), avails,
-                    C_pred[ps], T_pred[ps])
-            if tiered:
-                rows = _tier_rows(tt, ps, *rows)
-            c_r, t_r, r_r, a_r, cp_r, tp_r = rows
-            sels_x = select_batched(
-                pol, c_rows=c_r, t_rows=t_r, runs_rows=r_r, avail_rows=a_r,
-                k=K.gather(1, jd), c_pred_rows=cp_r, t_pred_rows=tp_r,
-                draws=None if draws is None else draws.gather(1, jd))
-            sels = sels_x % S if tiered else sels_x                  # [B, Wc]
-            factors = factor.gather(1, jd)
-            on_sel = lambda x: x.gather(-1, sels.unsqueeze(-1)).squeeze(-1)  # noqa: E731
-            starts = on_sel(avails)
-            T_acts = act[ps, sels_x, 0] * factors
-            needs = on_sel(nreq_rows)
-            # each slot's trial allocation, on its own chosen row
-            trials = _alloc_row(
-                node_free.gather(1, sels.unsqueeze(-1).expand(B, Wc, N)),
-                on_sel(kths), needs, starts + T_acts)                # [B, Wc, N]
-
-            # the no-delay guard for every slot at once: a trial can delay
-            # the head only on the head's reserved system sel_h, so recheck
-            # each trial's row of it (untouched rows give r_h back exactly)
-            sel_h = sels[:, 0]
-            head_row = node_free.gather(1, sel_h.view(B, 1, 1).expand(B, 1, N))
-            trial_h = torch.where((sels == sel_h.unsqueeze(1)).unsqueeze(-1),
-                                  trials, head_row)                  # [B, Wc, N]
-            kth_h2 = kth_free_time(trial_h, needs[:, :1].expand(B, Wc),
-                                   force=recheck)
-            avail_h2 = torch.maximum(kth_h2, arrival[jjs[:, :1]])
-            if outage is not None:
-                avail_h2 = _push_out_of_outage(avail_h2,
-                                               outage[sel_h].unsqueeze(1))
-            r_h = starts[:, 0]                                       # reservation
-            place_head = head_valid & (forced | (r_h <= now))
-
-            # first fit: the least eligible slot index (Wc = none)
-            elig = torch.where(
-                slot == 0, place_head.unsqueeze(1),
-                (head_valid & ~place_head).unsqueeze(1) & (pend < J)
-                & (avail_h2 <= r_h.unsqueeze(1)))
-            chosen = torch.where(elig, slot, Wc).amin(1)             # [B]
+            r = (unrolled_step if unrolled else batched_step)(
+                pend, head_valid, forced, now, factor, draws, K)
+            chosen, jj, p, sel_x, sel, fac, T_act, start, need, new_row = r
             placed = chosen < Wc
-            ci = chosen.clamp_max(Wc - 1).unsqueeze(1)               # [B, 1]
-            pick = lambda x: x.gather(1, ci).squeeze(1)  # noqa: E731
-            sel_x, sel, p = pick(sels_x), pick(sels), pick(ps)
-            fac, T_act, start, need = (pick(factors), pick(T_acts),
-                                       pick(starts), pick(needs))
-            jj = pick(jjs)
 
             # the chosen trial row IS the placement
             row_idx = sel.view(B, 1, 1).expand(B, 1, N)
             node_free.scatter_(1, row_idx, torch.where(
-                placed.view(B, 1, 1),
-                trials.gather(1, ci.unsqueeze(-1).expand(B, 1, N)),
+                placed.view(B, 1, 1), new_row.unsqueeze(1),
                 node_free.gather(1, row_idx)))
             # the learned tables absorb base observations, old * n + truth *
             # factor, with the product the reference's compiled step fuses
             # (read from its CPU machine code): truth * factor under DVFS
-            # tiers or with a single lane, else old * n
+            # tiers or with a single lane of the batched step, else old * n
+            # (the unrolled step fuses old * n at any lane count)
             flat = (p * S + sel).unsqueeze(1)                        # [B, 1]
             flat2 = flat.unsqueeze(-1).expand(B, 1, 2)
             old = CT_flat.gather(1, flat2).squeeze(1)                # [B, 2]
@@ -746,7 +823,8 @@ def _easy_run(arrs: dict, w: Workload, policy: Policy, lanes: dict, *,
 
             if totals_only:
                 E_act = act[p, sel_x, 1] * fac
-                finish = start + T_act
+                finish = (fma(act[p, sel_x, 0], fac, start) if unrolled
+                          else start + T_act)
                 wait = start - arrival[jj]
                 add = torch.stack([E_act, wait, (wait + T_act) / T_act], 1)
                 sums, comps = _kahan(sums, comps, torch.where(
@@ -769,7 +847,7 @@ def _easy_run(arrs: dict, w: Workload, policy: Policy, lanes: dict, *,
         return _totals(arrs, sums, fin_max, wait_max, busy, tabs)
     factor = factor if chunk is None else _job_draws(st)["factor"]
     return _job_results(arrs, st, w, sel_out[:, :J], start_out[:, :J], tabs,
-                        factor, fused_finish=False,
+                        factor, fused_finish=unrolled,
                         backfilled=bf_out[:, :J])
 
 
@@ -838,8 +916,10 @@ class Scheduler:
     warm_start: profile tables pre-filled with ground truth
     queue:      queue-discipline spec overriding the policy's: "fcfs" |
                 "easy_backfill[:window=W]" | "conservative[:window=W]"
-    easy_eval:  EASY candidate evaluation: "batched" (the only one ported;
-                "unrolled" raises, ROADMAP item 15)
+    easy_eval:  EASY candidate evaluation on the arrival core: "batched"
+                (two kth-free calls a step) or "unrolled" (the reference's
+                per-slot loop, its bit-identity reference: 2 W + 2 calls a
+                step; tiered policies raise ``ValueError``)
     power_cap:  SCC power cap in Watts, a scalar or a 1-D grid that
                 batches with ``k`` (overrides the policy's leaf); a finite
                 cap runs on the event-granular core
@@ -896,10 +976,6 @@ class Scheduler:
         if engine not in (None, "arrival", "events"):
             raise ValueError(f"engine {engine!r} not in (None, 'arrival', "
                              "'events')")
-        if easy_eval == "unrolled":
-            raise NotImplementedError(
-                "easy_eval='unrolled' is not ported (ROADMAP Queue 1 item "
-                "15); 'batched' gives the same placements")
         if engine == "arrival" and self.policy.queue == "conservative":
             raise ValueError("queue='conservative' requires the event-"
                              "granular core (engine='events' or None)")
@@ -987,9 +1063,11 @@ class Scheduler:
                           else self.faults)
             core_run = _event_run
             kw["retries"] = any(f.failure_prob > 0 for f in fault_list)
+        elif pol.queue == "easy_backfill":
+            core_run = _easy_run
+            kw["easy_eval"] = self.easy_eval
         else:
-            core_run = _easy_run if pol.queue == "easy_backfill" \
-                else _arrival_run
+            core_run = _arrival_run
         run = lambda arrs, ln: core_run(arrs, w, pol, ln, **kw)  # noqa: E731
         if self.shards is None:
             out = run(_workload_arrays(w, dev),

@@ -350,3 +350,72 @@ def select_batched(policy: Policy, *, c_rows, t_rows, runs_rows, avail_rows,
                  c_pred_row=flat(c_pred_rows), t_pred_row=flat(t_pred_rows),
                  draw=None if draws is None else draws.reshape(-1))
     return sel.reshape(lead)
+
+
+# ---------------------------------------------------------- numpy mirror
+
+def _lex_argmin_py(c_row, t_row, feasible):
+    if not feasible.any():
+        feasible = np.ones_like(feasible, dtype=bool)
+    cbest = np.where(feasible, c_row, BIG).min()
+    tie = feasible & (c_row == cbest)
+    return int(np.argmin(np.where(tie, t_row, BIG)))
+
+
+def _paper_rule_py(c_row, t_row, k):
+    feasible = t_row <= t_row.min() * (1.0 + k)
+    return _lex_argmin_py(c_row, t_row, feasible)
+
+
+def select_py(policy: Policy, *, c_row, t_row, runs_row, avail_row, k,
+              c_pred_row=None, t_pred_row=None, rand_sel=None):
+    """float64 numpy mirror of ``select`` for one candidate row (the
+    differential mirror ``core.simulator.simulate_py``).  The ``random``
+    objective's pick comes from the caller as ``rand_sel``, drawn with
+    ``utils.prng`` as the engine draws it."""
+    obj = policy.objective
+    if obj == "min_avail":
+        return int(np.argmin(avail_row))
+    if obj == "random":
+        return rand_sel
+    if obj == "oracle":
+        return _paper_rule_py(c_pred_row, t_pred_row, k)
+
+    known = runs_row > 0
+
+    expl = policy.exploration
+    if expl == "first_released":
+        c_eff = np.where(known, c_row, BIG)
+        t_eff = np.where(known, t_row, BIG)
+    elif expl == "predictive_fill":
+        c_eff = np.where(known, c_row, c_pred_row)
+        t_eff = np.where(known, t_row, t_pred_row)
+    else:  # optimistic_bound
+        c_floor = (np.where(known, c_row, BIG).min()
+                   * float(_host(policy.ucb_scale)))
+        c_eff = np.where(known, c_row, c_floor)
+        t_eff = np.where(known, t_row, np.where(known, t_row, BIG).min())
+
+    feas = policy.feasibility
+    if feas == "queue_aware":
+        wait = avail_row - avail_row.min()
+        t_sel = np.where(t_eff < BIG, t_eff + wait, BIG)
+    else:
+        t_sel = t_eff
+
+    if obj == "min_c" and policy.tiered:
+        fw = float(_host(policy.freq_weight))
+        c_eff = c_eff + fw * np.where(t_sel < BIG, t_sel, 0.0)
+
+    if obj == "min_c":
+        if feas == "none":
+            exploit = _lex_argmin_py(c_eff, t_sel,
+                                     np.ones(len(c_eff), dtype=bool))
+        else:
+            exploit = _paper_rule_py(c_eff, t_sel, k)
+    else:  # min_t
+        exploit = int(np.argmin(t_sel))
+
+    if expl == "first_released" and not known.all():
+        return int(np.argmin(np.where(~known, avail_row, BIG)))
+    return exploit

@@ -34,8 +34,8 @@ prints the ``peak_power`` / ``capped_delay`` / ``idle_energy`` line.
 Campaign scale: ``--shards auto|N`` splits the grid's lanes over the
 local devices and ``--chunk SIZE`` runs the steps in SIZE-step windows
 (with ``--totals-only``, memory flat in the number of jobs).
-``--easy-eval unrolled`` parses and is refused by ``Scheduler`` with
-``NotImplementedError`` naming ROADMAP item 15.
+``--easy-eval unrolled`` runs the reference's per-slot EASY loop
+(2 W + 2 kth-free calls a step, the same placements).
 """
 
 from __future__ import annotations
@@ -97,7 +97,9 @@ def main(argv=None):
     ap.add_argument("--easy-eval", default="batched",
                     choices=("batched", "unrolled"),
                     help="EASY candidate evaluation: batched (one [W, S] "
-                         "kth-free call per step); unrolled is not ported")
+                         "kth-free call per step) or the historical "
+                         "unrolled per-slot loop (the same placements, "
+                         "~W x slower; debugging/A-B only)")
     ap.add_argument("--sweep-k", default="",
                     help="comma-separated K values (fractions)")
     ap.add_argument("--jobs", type=int, default=0,

@@ -21,6 +21,7 @@ from repro.utils.tree import flatten_with_names as r_flatten  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.utils.tree import (flatten_with_names,  # noqa: E402
                                     map_with_names)
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 
 class Carry(NamedTuple):

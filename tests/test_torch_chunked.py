@@ -33,6 +33,7 @@ from repro_torch.convert import (policy_from_reference,  # noqa: E402
 from repro_torch.core import JSCC_SYSTEMS, FaultConfig, Scheduler  # noqa: E402
 from repro_torch.core import engine, events, parse_policy_spec  # noqa: E402
 from repro_torch.data import make_stream_workload  # noqa: E402
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 TOTAL_FIELDS = ("total_energy", "makespan", "total_wait", "slowdown_sum",
                 "max_wait", "peak_power", "capped_delay", "busy",

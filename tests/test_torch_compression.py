@@ -24,6 +24,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 from repro.optim import compression as jc  # noqa: E402
 from repro_torch.optim import compression as tc  # noqa: E402

@@ -58,6 +58,8 @@ from repro_torch.sharding import lm_rules  # noqa: E402
 from repro_torch.train import dp, init_dp_state, make_dp_train_step  # noqa: E402
 from repro_torch.train.dp import pmean  # noqa: E402
 from repro_torch.utils.tree import flatten_with_names  # noqa: E402
+from _jax_caches import release_compiled  # noqa: E402,F401
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _threads():

@@ -39,6 +39,7 @@ from repro_torch.core import FaultConfig as TFault  # noqa: E402
 from repro_torch.core import Scheduler as TScheduler  # noqa: E402
 from repro_torch.core.result import CampaignResult  # noqa: E402
 from repro_torch.data import scenarios as ts  # noqa: E402
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 EXACT = ("system", "tier", "nodes", "start", "finish", "wait", "energy",
          "runtime", "backfilled", "runs", "C_tab", "T_tab", "busy",
@@ -241,16 +242,18 @@ def test_every_placer_mode_equals_the_default(stream80, placer):
 
 
 def test_easy_options():
-    """``easy_eval="unrolled"`` is not ported (item 15); EASY also runs on
-    the event core (``engine="events"``, which reports the peak draw); a
-    bad ``easy_eval`` is a ValueError."""
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TScheduler("easy_backfill", easy_eval="unrolled", device="cpu")
+    """``easy_eval="unrolled"`` (item 15) runs and places as the batched
+    step; EASY also runs on the event core (``engine="events"``, which
+    reports the peak draw); a bad ``easy_eval`` is a ValueError."""
     with pytest.raises(ValueError, match="easy_eval"):
         TScheduler("easy_backfill", easy_eval="nope", device="cpu")
     w = workload_from_reference(r_npb(R_SYSTEMS))
     res = TScheduler("easy_backfill", engine="arrival", device="cpu").run(w)
     assert res.backfilled.shape == (5,) and res.n_backfilled.dim() == 0
+    un = TScheduler("easy_backfill", engine="arrival", easy_eval="unrolled",
+                    device="cpu").run(w)
+    for f in ("system", "start", "backfilled", "runs", "n_backfilled"):
+        assert torch.equal(getattr(un, f), getattr(res, f)), f
     ev = TScheduler("easy_backfill", engine="events", device="cpu").run(w)
     assert ev.backfilled.shape == (5,) and ev.n_backfilled.dim() == 0
     assert not bool(torch.isnan(ev.peak_power)) \

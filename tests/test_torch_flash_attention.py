@@ -21,6 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 from repro.kernels.flash_attention import attention_ref as j_attention_ref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention_bhsd  # noqa: E402

@@ -36,7 +36,9 @@ def _modules():
 
 
 def test_importing_every_port_module_loads_no_jax_or_reference():
-    assert "repro_torch.core.events" in set(_modules())
+    assert {"repro_torch.core.events", "repro_torch.utils.cost",
+            "repro_torch.launch.dryrun",
+            "repro_torch.launch.roofline"} <= set(_modules())
     code = ("import sys\n"
             f"for m in {list(_modules())!r}:\n"
             "    __import__(m)\n"
@@ -249,15 +251,13 @@ def test_event_core_options_run_on_the_cpu(kwargs):
     ({"chunk": 1024}, "item 7"),
 ])
 def test_unported_options_raise(kwargs, item):
-    """Options by ROADMAP item: item 15 is not ported and raises naming
-    it; item 7 (campaign scale) is, so ``shards`` and ``chunk`` run and
-    equal the run without them."""
-    if item != "item 7":
-        with pytest.raises(NotImplementedError, match=item):
-            Scheduler(device="cpu", **kwargs)
-        return
+    """Options by ROADMAP item, each ported now: item 15's
+    ``easy_eval="unrolled"`` (under an EASY queue) and item 7's
+    ``shards`` and ``chunk`` run and equal the run without them."""
     w = make_npb_workload(JSCC_SYSTEMS, repeats=3)
     pol = make_policy("paper", k=np.array([0.0, 0.2], np.float32))
+    if item == "item 15":
+        pol = dataclasses.replace(pol, queue="easy_backfill", window=4)
     base = Scheduler(pol, device="cpu", seeds=[0, 1]).run(w)
     res = Scheduler(pol, device="cpu", seeds=[0, 1], **kwargs).run(w)
     for f in ("system", "start", "finish", "energy", "total_energy",

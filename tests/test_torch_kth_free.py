@@ -13,6 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 from repro.kernels.kth_free import (kth_free_batched_ref,  # noqa: E402
                                     kth_free_pallas, kth_free_pallas_batched,

@@ -27,6 +27,7 @@ from repro_torch.convert import (policy_from_reference,  # noqa: E402
                                  workload_from_reference)
 from repro_torch.core import FaultConfig as TFault  # noqa: E402
 from repro_torch.core import Scheduler as TScheduler  # noqa: E402
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 from test_torch_fusion_map import EXACT, REDUCED, RETRIES  # noqa: E402
 

@@ -25,6 +25,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402

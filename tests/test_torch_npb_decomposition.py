@@ -26,6 +26,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 from repro.kernels.is_hist import key_histogram_pallas  # noqa: E402
 from repro.kernels.stencil3d import stencil7_pallas  # noqa: E402

@@ -18,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 from repro.kernels.ep import ep_pairs_pallas  # noqa: E402
 from repro.kernels.ep import ep_pairs_ref as j_ep_ref  # noqa: E402

@@ -34,6 +34,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 from repro import configs as jconfigs  # noqa: E402
 from repro import optim as joptim  # noqa: E402

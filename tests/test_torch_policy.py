@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 from repro.core import policy as r_pol  # noqa: E402
 from repro_torch.convert import policy_from_reference  # noqa: E402

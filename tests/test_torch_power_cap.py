@@ -24,6 +24,7 @@ from repro_torch.convert import (policy_from_reference,  # noqa: E402
                                  workload_from_reference)
 from repro_torch.core import Scheduler as TScheduler  # noqa: E402
 from repro_torch.core import events  # noqa: E402
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 EXACT = ("system", "tier", "nodes", "start", "finish", "wait", "energy",
          "runtime", "backfilled", "runs", "C_tab", "T_tab", "busy",

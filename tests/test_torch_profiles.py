@@ -9,6 +9,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 from repro.core import energy as j_energy  # noqa: E402
 from repro.core.algorithm import MODES as J_MODES  # noqa: E402

@@ -6,8 +6,8 @@ model, engine and scale-out arguments (field for field), and ``main``
 prints the reference's lines, character for character, on the paper
 suite, EASY streams, the SWF fixture, the conservative, power-capped
 and event-engine spellings (the ``peak_power`` line included) and with
-``--shards`` / ``--chunk`` (``--device cpu``).  Options whose part is not
-ported raise ``NotImplementedError`` naming their ROADMAP item.
+``--shards`` / ``--chunk`` and ``--easy-eval unrolled`` (``--device
+cpu``).
 """
 
 import argparse
@@ -28,6 +28,7 @@ from repro.core import cliargs as r_cli  # noqa: E402
 from repro_torch.convert import policy_from_reference  # noqa: E402
 from repro_torch.core import cliargs as t_cli  # noqa: E402
 from repro_torch.launch import schedule as t_schedule  # noqa: E402
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "data",
                        "jscc_sample.swf.gz")
@@ -152,14 +153,10 @@ def test_main_prints_the_reference_lines(argv):
     (["--shards", "4", "--chunk", "65536"], "item 7"),
 ])
 def test_unported_flags_raise_naming_their_item(argv, item):
-    """Flags by ROADMAP item: item 15 is not ported and raises naming it;
-    item 7 (campaign scale) is, so ``--shards`` / ``--chunk`` print the
-    reference CLI's lines, or raise its ``ValueError`` where it does (4
-    shards on one device)."""
-    if item != "item 7":
-        with pytest.raises(NotImplementedError, match=item):
-            t_schedule.main(argv + ["--device", "cpu"])
-        return
+    """Flags by ROADMAP item, each ported now: ``--easy-eval unrolled``
+    (item 15), ``--shards`` / ``--chunk`` (item 7) print the reference
+    CLI's lines, or raise its ``ValueError`` where it does (4 shards on
+    one device)."""
     try:
         ref = _reference_stdout(argv)
     except ValueError as e:

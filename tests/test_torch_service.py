@@ -44,6 +44,7 @@ from repro_torch.core.policy import make_policy  # noqa: E402
 from repro_torch.service import Dispatcher, ServiceMetrics, whatif  # noqa: E402
 from repro_torch.service.whatif import _rollout, rollout_length  # noqa: E402
 from repro_torch.utils.tree import flatten_with_names  # noqa: E402
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 #: every total/per-job/table field a SimResult carries (the reference's
 #: ``tests/test_service.py`` tuple)

@@ -31,6 +31,7 @@ from repro_torch.core import cliargs as t_args  # noqa: E402
 from repro_torch.core import make_npb_workload  # noqa: E402
 from repro_torch.launch import scheduler_service as t_cli  # noqa: E402
 from repro_torch.service import Dispatcher  # noqa: E402
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 ARGV = ["--queue", "easy_backfill:window=4", "--warm-start", "--capacity",

@@ -47,6 +47,7 @@ from repro_torch.core.policy import make_policy  # noqa: E402
 from repro_torch.service import (AsyncWriter, Dispatcher,  # noqa: E402
                                  SessionPool, whatif)
 from repro_torch.utils.tree import flatten_with_names  # noqa: E402
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 from test_torch_service import (FAILS, FIELDS, LATENCY,  # noqa: E402
                                 REDUCED, _np, assert_bit_identical,

@@ -24,6 +24,7 @@ from test_torch_service import (FAILS, REDUCED,  # noqa: E402,F401
                                 _one_thread, _sessions,
                                 assert_bit_identical,
                                 assert_decisions_match)
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "benchmarks"))

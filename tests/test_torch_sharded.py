@@ -30,6 +30,7 @@ from repro_torch.core import (JSCC_SYSTEMS, FaultConfig, Scheduler,  # noqa: E40
                               parse_policy_spec)
 from repro_torch.data import make_stream_workload  # noqa: E402
 from repro_torch.launch import mesh  # noqa: E402
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIELDS = ("system", "start", "finish", "energy", "backfilled", "runtime",

@@ -33,6 +33,7 @@ import repro_torch.core as T  # noqa: E402
 from repro.data.scenarios import make_stream_workload  # noqa: E402
 from repro_torch.convert import (policy_from_reference,  # noqa: E402
                                  workload_from_reference)
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PERJOB = ("system", "start", "finish", "energy", "makespan", "peak_power",
@@ -152,8 +153,19 @@ def test_core_spelling_warns_and_conflicts():
 
 
 def test_simulate_py_is_item_15(streams):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        T.simulate_py(streams[1], T.SimConfig())
+    """The float64 mirror (item 15) is ported: on the legacy shims'
+    stream it equals the reference's mirror on every field, EASY and the
+    event core included (tests/test_torch_mirror.py holds the rest)."""
+    for cfg in (R.SimConfig(), R.SimConfig(mode="ucb", queue="easy_backfill",
+                                           queue_window=4),
+                R.SimConfig(mode="queue_aware", core="events",
+                            warm_start=True)):
+        rp = R.simulate_py(streams[0], cfg)
+        tp = T.simulate_py(streams[1], _tconfig(cfg))
+        assert set(tp) == set(rp)
+        for f in rp:
+            assert np.array_equal(np.asarray(rp[f]), np.asarray(tp[f]),
+                                  equal_nan=True), f
 
 
 def _example(name):

@@ -21,6 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 from repro.kernels.ssd_scan import ssd_scan_pallas  # noqa: E402
 from repro.kernels.ssd_scan import ssd_scan_ref as j_ssd_scan_ref  # noqa: E402

@@ -14,6 +14,7 @@ from repro.core import suppz as R  # noqa: E402
 from repro_torch.core import suppz as T  # noqa: E402
 from repro_torch.core.suppz import (Submission, SuppzFrontend,  # noqa: E402
                                     program_id)
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 SYS = ["KNL", "Broadwell", "Skylake", "CascadeLake"]
 PROFILES = {"KNL": (1.0, 150.0), "Broadwell": (2.8, 130.0),

@@ -19,6 +19,7 @@ from repro.core import JSCC_SYSTEMS as R_SYSTEMS  # noqa: E402
 from repro.data import scenarios as rs  # noqa: E402
 from repro_torch.core import JSCC_SYSTEMS as T_SYSTEMS  # noqa: E402
 from repro_torch.data import scenarios as ts  # noqa: E402
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "data",
                        "jscc_sample.swf.gz")

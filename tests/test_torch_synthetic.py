@@ -17,6 +17,7 @@ from repro.data import synthetic as jsyn  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.data import synthetic as syn  # noqa: E402
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 SHAPE = ShapeConfig("t", seq_len=96, global_batch=3, kind="train")
 

@@ -11,6 +11,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 from repro.core import dvfs as r_dvfs  # noqa: E402
 from repro.core import systems as r_sys  # noqa: E402

@@ -22,6 +22,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from _jax_caches import release_compiled  # noqa: E402,F401
 
 from repro.workloads import BENCHMARKS as J_BENCHMARKS  # noqa: E402
 from repro.workloads import run_benchmark as j_run_benchmark  # noqa: E402
