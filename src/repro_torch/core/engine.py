@@ -40,6 +40,17 @@ lanes over devices (``_lane_split``).
 
 ``easy_eval="unrolled"`` runs the reference's per-slot EASY loop, the
 batched step's bit-identity reference (``_easy_run``).
+
+Spans (``utils/trace``; off by default, one flag check each): ``run``
+(``Scheduler.run``) holds ``run.workload_arrays`` (the host-to-device
+copies), ``run.setup`` and ``run.job_draws`` (inside ``_setup`` and
+``_job_draws``, so the event cores and the service get them too), one
+``run.steps`` a chunk, and ``run.results``.  Under ``run.steps`` every
+step of the arrival-indexed cores is a ``step`` span: FCFS's phases
+``fcfs.earliest`` / ``fcfs.select`` / ``fcfs.commit``, EASY's
+``easy.push`` / ``easy.score`` / ``easy.trial`` / ``easy.recheck`` /
+``easy.commit`` (the unrolled step's own per-slot loop has no phase
+spans, only the push and commit it shares).
 """
 
 from __future__ import annotations
@@ -59,7 +70,7 @@ from repro_torch.core.workload_model import NPB_PROFILES, npb_tables
 from repro_torch.device import resolve_device
 from repro_torch.kernels.kth_free.ops import (check_mode, kth_free_time,
                                               kth_free_time_shared)
-from repro_torch.utils import prng
+from repro_torch.utils import prng, trace
 from repro_torch.utils.fp import fma
 from repro_torch.utils.tree import flatten_with_names, map_with_names
 
@@ -200,16 +211,18 @@ def _job_draws(st: dict, jobs=None) -> dict:
     objectives) and the effective ``K`` (the job's own k, else the
     lane's).  Threefry is counter based, so a job's draws are the same
     bits whichever set it is drawn in."""
-    jj = torch.arange(st["J"], device=st["dev"]) if jobs is None else jobs
-    slow, fail = _fault_draws(st["fault_key"], jj, st["fvec"])
-    draws = None
-    if st["objective"] == "random":
-        draws = prng.randint(prng.fold_in(st["sel_key"][:, None, :], jj), (),
-                             0, st["FS"])
-    kjob = st["kjob"] if jobs is None else _per_lane(st["kjob"], jobs)
-    return dict(slow=slow, fail=fail,
-                factor=_fault_factors(slow, fail, st["fvec"]), draws=draws,
-                K=torch.where(torch.isnan(kjob), st["k"][:, None], kjob))
+    with trace.span("run.job_draws"):
+        jj = torch.arange(st["J"], device=st["dev"]) if jobs is None else jobs
+        slow, fail = _fault_draws(st["fault_key"], jj, st["fvec"])
+        draws = None
+        if st["objective"] == "random":
+            draws = prng.randint(prng.fold_in(st["sel_key"][:, None, :], jj),
+                                 (), 0, st["FS"])
+        kjob = st["kjob"] if jobs is None else _per_lane(st["kjob"], jobs)
+        return dict(slow=slow, fail=fail,
+                    factor=_fault_factors(slow, fail, st["fvec"]),
+                    draws=draws,
+                    K=torch.where(torch.isnan(kjob), st["k"][:, None], kjob))
 
 
 def _per_lane(stream, idx):
@@ -384,37 +397,38 @@ def _setup(arrs: dict, w: Workload, policy: Policy, lanes: dict,
     tables gathered at a chosen candidate, the keys and per-lane values
     ``_job_draws`` draws from, the per-lane policy, and the initial
     node-free and learned tables."""
-    dev = arrs["free0"].device
-    T_true, C_true, E_true = arrs["T_true"], arrs["C_true"], arrs["E_true"]
-    P, S = T_true.shape
-    N = arrs["free0"].shape[-1]
-    J = np.shape(w.prog)[-1]
-    B = lanes["k"].shape[0]
-    tiered = policy.tiered
-    tt = tier_tables(arrs, policy.freq_tiers) if tiered else None
-    FS = len(policy.freq_tiers) * S
-    sel_key, fault_key = prng.split(prng.key(lanes["seed"])).unbind(1)
-    truth = torch.stack([C_true, T_true], -1)                    # [P, S, 2]
-    if warm_start:
-        CT = truth.expand(B, P, S, 2).clone()
-        runs = torch.ones((B, P, S), dtype=torch.int32, device=dev)
-    else:
-        CT = torch.zeros((B, P, S, 2), dtype=F32, device=dev)
-        runs = torch.zeros((B, P, S), dtype=torch.int32, device=dev)
-    return dict(
-        dev=dev, P=P, S=S, N=N, J=J, B=B, tiered=tiered, tt=tt, FS=FS,
-        # base (C, T) for the learned tables, realized (T, E) for the job
-        # (tier-major when tiered, matching the selector's flat index)
-        truth=truth,
-        act=(torch.stack([tt["T"], tt["E"]], -1).reshape(P, FS, 2)
-             if tiered else torch.stack([T_true, E_true], -1)),
-        sel_key=sel_key, fault_key=fault_key, fvec=lanes["fvec"],
-        k=lanes["k"], objective=policy.objective,
-        # [J], or [B, J] in a session pool (``_per_lane``)
-        kjob=torch.as_tensor(np.asarray(w.k_job, np.float32), device=dev),
-        pol=replace(policy, ucb_scale=lanes["ucb_scale"],
-                    freq_weight=lanes["freq_weight"]),
-        node_free=arrs["free0"].expand(B, S, N).clone(), CT=CT, runs=runs)
+    with trace.span("run.setup"):
+        dev = arrs["free0"].device
+        T_true, C_true, E_true = arrs["T_true"], arrs["C_true"], arrs["E_true"]
+        P, S = T_true.shape
+        N = arrs["free0"].shape[-1]
+        J = np.shape(w.prog)[-1]
+        B = lanes["k"].shape[0]
+        tiered = policy.tiered
+        tt = tier_tables(arrs, policy.freq_tiers) if tiered else None
+        FS = len(policy.freq_tiers) * S
+        sel_key, fault_key = prng.split(prng.key(lanes["seed"])).unbind(1)
+        truth = torch.stack([C_true, T_true], -1)                    # [P, S, 2]
+        if warm_start:
+            CT = truth.expand(B, P, S, 2).clone()
+            runs = torch.ones((B, P, S), dtype=torch.int32, device=dev)
+        else:
+            CT = torch.zeros((B, P, S, 2), dtype=F32, device=dev)
+            runs = torch.zeros((B, P, S), dtype=torch.int32, device=dev)
+        return dict(
+            dev=dev, P=P, S=S, N=N, J=J, B=B, tiered=tiered, tt=tt, FS=FS,
+            # base (C, T) for the learned tables, realized (T, E) for the job
+            # (tier-major when tiered, matching the selector's flat index)
+            truth=truth,
+            act=(torch.stack([tt["T"], tt["E"]], -1).reshape(P, FS, 2)
+                 if tiered else torch.stack([T_true, E_true], -1)),
+            sel_key=sel_key, fault_key=fault_key, fvec=lanes["fvec"],
+            k=lanes["k"], objective=policy.objective,
+            # [J], or [B, J] in a session pool (``_per_lane``)
+            kjob=torch.as_tensor(np.asarray(w.k_job, np.float32), device=dev),
+            pol=replace(policy, ucb_scale=lanes["ucb_scale"],
+                        freq_weight=lanes["freq_weight"]),
+            node_free=arrs["free0"].expand(B, S, N).clone(), CT=CT, runs=runs)
 
 
 def _kahan(sums, comps, add):
@@ -427,10 +441,11 @@ def _kahan(sums, comps, add):
 
 def _totals(arrs, sums, fin_max, wait_max, busy, tabs) -> dict:
     """The result fields of a ``totals_only`` run."""
-    return {"total_energy": sums[:, 0], "makespan": fin_max,
-            "total_wait": sums[:, 1], "slowdown_sum": sums[:, 2],
-            "max_wait": wait_max, "busy": busy,
-            **_power_totals(arrs, fin_max, busy), **tabs}
+    with trace.span("run.results"):
+        return {"total_energy": sums[:, 0], "makespan": fin_max,
+                "total_wait": sums[:, 1], "slowdown_sum": sums[:, 2],
+                "max_wait": wait_max, "busy": busy,
+                **_power_totals(arrs, fin_max, busy), **tabs}
 
 
 def _arrival_run(arrs: dict, w: Workload, policy: Policy, lanes: dict, *,
@@ -467,54 +482,59 @@ def _arrival_run(arrs: dict, w: Workload, policy: Policy, lanes: dict, *,
         d = _job_draws(st, None if chunk is None else
                        torch.arange(lo, lo + n_steps, device=dev))
         factor, draws, K = d["factor"], d["draws"], d["K"]      # [B, n]
-        for j in range(lo, lo + n_steps):
-            c = j - lo
-            p, arr = int(prog_h[j]), float(arrival_h[j])
-            nreq = nreq_b[p]                                     # [B, S]
-            kth, avail = _earliest(node_free, nreq, arr, placer, outage)
-            ct = CT[:, p]                                        # [B, S, 2]
-            rows = (ct[..., 0], ct[..., 1], runs[:, p], avail,
-                    arrs["C_pred"][p], arrs["T_pred"][p])
-            if tiered:
-                rows = _tier_rows(tt, p, *rows)
-            c_r, t_r, r_r, a_r, cp_r, tp_r = rows
-            sel_x = select(pol, c_row=c_r, t_row=t_r, runs_row=r_r,
-                           avail_row=a_r, k=K[:, c], c_pred_row=cp_r,
-                           t_pred_row=tp_r,
-                           draw=None if draws is None else draws[:, c])
-            sel = sel_x % S if tiered else sel_x
-            sel1 = sel.unsqueeze(1)                              # [B, 1]
+        with trace.span("run.steps"):
+            for j in range(lo, lo + n_steps):
+                with trace.span("step", j=j):
+                    with trace.span("fcfs.earliest"):
+                        c = j - lo
+                        p, arr = int(prog_h[j]), float(arrival_h[j])
+                        nreq = nreq_b[p]  # [B, S]
+                        kth, avail = _earliest(node_free, nreq, arr, placer, outage)
+                    with trace.span("fcfs.select"):
+                        ct = CT[:, p]  # [B, S, 2]
+                        rows = (ct[..., 0], ct[..., 1], runs[:, p], avail,
+                                arrs["C_pred"][p], arrs["T_pred"][p])
+                        if tiered:
+                            rows = _tier_rows(tt, p, *rows)
+                        c_r, t_r, r_r, a_r, cp_r, tp_r = rows
+                        sel_x = select(pol, c_row=c_r, t_row=t_r, runs_row=r_r,
+                                       avail_row=a_r, k=K[:, c], c_pred_row=cp_r,
+                                       t_pred_row=tp_r,
+                                       draw=None if draws is None else draws[:, c])
+                        sel = sel_x % S if tiered else sel_x
+                        sel1 = sel.unsqueeze(1)  # [B, 1]
+                    with trace.span("fcfs.commit"):
+                        fac = factor[:, c]
+                        ac = act[p][sel_x]  # [B, 2]
+                        start = avail.gather(1, sel1).squeeze(1)
+                        idx2 = sel1.unsqueeze(-1).expand(B, 1, 2)
+                        old = ct.gather(1, idx2).squeeze(1)  # [B, 2]
+                        n = runs[:, p].gather(1, sel1).to(F32)  # [B, 1]
+                        upd = truth[p][sel] * fac.unsqueeze(1)  # C_act, T_upd
+                        # one fused multiply-add each, as the reference
+                        # computes them: finish = T * factor + start,
+                        # table = old * n + obs
+                        fused = fma(torch.cat([old, ac[:, :1]], 1),
+                                    torch.cat([n, n, fac.unsqueeze(1)], 1),
+                                    torch.cat([upd, start.unsqueeze(1)], 1))
+                        finish = fused[:, 2]
+                        need = nreq.gather(1, sel1).squeeze(1)
+                        _alloc_(node_free, sel, kth.gather(1, sel1).squeeze(1), need,
+                                finish)
+                        ct.scatter_(1, idx2, (fused[:, :2] / (n + 1)).unsqueeze(1))
+                        runs[:, p].scatter_add_(1, sel1, one)
+                        T_act, E_act = (ac * fac.unsqueeze(1)).unbind(1)
+                        busy.scatter_add_(1, sel1, (T_act * need).unsqueeze(1))
 
-            fac = factor[:, c]
-            ac = act[p][sel_x]                                   # [B, 2]
-            start = avail.gather(1, sel1).squeeze(1)
-            idx2 = sel1.unsqueeze(-1).expand(B, 1, 2)
-            old = ct.gather(1, idx2).squeeze(1)                  # [B, 2]
-            n = runs[:, p].gather(1, sel1).to(F32)               # [B, 1]
-            upd = truth[p][sel] * fac.unsqueeze(1)               # C_act, T_upd
-            # one fused multiply-add each, as the reference computes
-            # them: finish = T * factor + start, table = old * n + obs
-            fused = fma(torch.cat([old, ac[:, :1]], 1),
-                        torch.cat([n, n, fac.unsqueeze(1)], 1),
-                        torch.cat([upd, start.unsqueeze(1)], 1))
-            finish = fused[:, 2]
-            need = nreq.gather(1, sel1).squeeze(1)
-            _alloc_(node_free, sel, kth.gather(1, sel1).squeeze(1), need,
-                    finish)
-            ct.scatter_(1, idx2, (fused[:, :2] / (n + 1)).unsqueeze(1))
-            runs[:, p].scatter_add_(1, sel1, one)
-            T_act, E_act = (ac * fac.unsqueeze(1)).unbind(1)
-            busy.scatter_add_(1, sel1, (T_act * need).unsqueeze(1))
-
-            if totals_only:
-                wait = start - arr
-                sums, comps = _kahan(sums, comps, torch.stack(
-                    [E_act, wait, (wait + T_act) / T_act], 1))
-                fin_max = torch.maximum(fin_max, finish)
-                wait_max = torch.maximum(wait_max, wait)
-            else:
-                sel_out[:, j] = sel_x
-                start_out[:, j] = start
+                        if totals_only:
+                            wait = start - arr
+                            sums, comps = _kahan(sums, comps, torch.stack(
+                                [E_act, wait, (wait + T_act) / T_act], 1))
+                            fin_max = torch.maximum(fin_max, finish)
+                            wait_max = torch.maximum(wait_max, wait)
+                        else:
+                            sel_out[:, j] = sel_x
+                            start_out[:, j] = start
 
     tabs = {"C_tab": CT[..., 0], "T_tab": CT[..., 1], "runs": runs,
             "n_backfilled": torch.zeros(B, dtype=torch.int32, device=dev)}
@@ -535,34 +555,35 @@ def _job_results(arrs, st, w, sel_out, start, tabs, factor, *, busy=None,
     (FCFS, unrolled EASY) and a plain add where it does not (batched
     EASY).  ``busy=None`` accumulates the busy node-seconds here, in job
     order as the reference's scatter-add."""
-    dev, S, J, B = st["dev"], st["S"], st["J"], st["B"]
-    prog = torch.as_tensor(np.asarray(w.prog).astype(np.int64),
-                           device=dev).expand(B, J)
-    sel = sel_out % S if st["tiered"] else sel_out
-    ac = st["act"][prog, sel_out]                                # [B, J, 2]
-    T_act, E_act = (ac * factor.unsqueeze(-1)).unbind(-1)
-    finish = fma(ac[..., 0], factor, start) if fused_finish \
-        else start + T_act
-    wait = start - torch.as_tensor(np.asarray(w.arrival, np.float32),
-                                   device=dev)
-    nodes = arrs["n_req"][prog, sel]
-    if busy is None:
-        busy = torch.zeros((B, S), dtype=F32, device=dev)
-        work = T_act * nodes
-        for j in range(J):
-            busy.scatter_add_(1, sel[:, j:j + 1], work[:, j:j + 1])
-    makespan = finish.amax(-1)
-    return {
-        "system": sel.to(torch.int32), "start": start, "finish": finish,
-        "wait": wait, "energy": E_act, "runtime": T_act, "nodes": nodes,
-        "tier": (sel_out // S).to(torch.int32),
-        "backfilled": (torch.zeros((B, J), dtype=torch.bool, device=dev)
-                       if backfilled is None else backfilled),
-        "total_energy": E_act.sum(-1), "makespan": makespan,
-        "total_wait": wait.sum(-1), "max_wait": wait.amax(-1),
-        "slowdown_sum": ((wait + T_act) / T_act).sum(-1), "busy": busy,
-        **_power_totals(arrs, makespan, busy), **tabs,
-    }
+    with trace.span("run.results"):
+        dev, S, J, B = st["dev"], st["S"], st["J"], st["B"]
+        prog = torch.as_tensor(np.asarray(w.prog).astype(np.int64),
+                               device=dev).expand(B, J)
+        sel = sel_out % S if st["tiered"] else sel_out
+        ac = st["act"][prog, sel_out]  # [B, J, 2]
+        T_act, E_act = (ac * factor.unsqueeze(-1)).unbind(-1)
+        finish = fma(ac[..., 0], factor, start) if fused_finish \
+            else start + T_act
+        wait = start - torch.as_tensor(np.asarray(w.arrival, np.float32),
+                                       device=dev)
+        nodes = arrs["n_req"][prog, sel]
+        if busy is None:
+            busy = torch.zeros((B, S), dtype=F32, device=dev)
+            work = T_act * nodes
+            for j in range(J):
+                busy.scatter_add_(1, sel[:, j:j + 1], work[:, j:j + 1])
+        makespan = finish.amax(-1)
+        return {
+            "system": sel.to(torch.int32), "start": start, "finish": finish,
+            "wait": wait, "energy": E_act, "runtime": T_act, "nodes": nodes,
+            "tier": (sel_out // S).to(torch.int32),
+            "backfilled": (torch.zeros((B, J), dtype=torch.bool, device=dev)
+                           if backfilled is None else backfilled),
+            "total_energy": E_act.sum(-1), "makespan": makespan,
+            "total_wait": wait.sum(-1), "max_wait": wait.amax(-1),
+            "slowdown_sum": ((wait + T_act) / T_act).sum(-1), "busy": busy,
+            **_power_totals(arrs, makespan, busy), **tabs,
+        }
 
 
 def _earliest_shared(node_free, nreq_rows, arr_col, placer, outage):
@@ -713,63 +734,66 @@ def _easy_run(arrs: dict, w: Workload, policy: Policy, lanes: dict, *,
         """Every slot scored against the same node-free table in one
         batched pass (two kth-free calls): the chosen slot, its job and
         placement, and its trial row of the chosen system."""
-        jjs = pend.clamp_max(J - 1)                              # [B, Wc]
-        jd = _draw_cols(st, jjs)
-        ps = prog[jjs]
-        nreq_rows = n_req[ps]                                    # [B, Wc, S]
-        kths, avails = _earliest_shared(node_free, nreq_rows,
-                                        arrival[jjs].unsqueeze(-1), placer,
-                                        outage)
-        ct = CT.gather(1, ps[..., None, None].expand(B, Wc, S, 2))
-        rows = (ct[..., 0], ct[..., 1],
-                runs.gather(1, ps.unsqueeze(-1).expand(B, Wc, S)), avails,
-                C_pred[ps], T_pred[ps])
-        if tiered:
-            rows = _tier_rows(tt, ps, *rows)
-        c_r, t_r, r_r, a_r, cp_r, tp_r = rows
-        sels_x = select_batched(
-            pol, c_rows=c_r, t_rows=t_r, runs_rows=r_r, avail_rows=a_r,
-            k=K.gather(1, jd), c_pred_rows=cp_r, t_pred_rows=tp_r,
-            draws=None if draws is None else draws.gather(1, jd))
-        sels = sels_x % S if tiered else sels_x                  # [B, Wc]
-        factors = factor.gather(1, jd)
-        on_sel = lambda x: x.gather(-1, sels.unsqueeze(-1)).squeeze(-1)  # noqa: E731
-        starts = on_sel(avails)
-        T_acts = act[ps, sels_x, 0] * factors
-        needs = on_sel(nreq_rows)
-        # each slot's trial allocation, on its own chosen row
-        trials = _alloc_row(
-            node_free.gather(1, sels.unsqueeze(-1).expand(B, Wc, N)),
-            on_sel(kths), needs, starts + T_acts)                # [B, Wc, N]
+        with trace.span("easy.score"):
+            jjs = pend.clamp_max(J - 1)                              # [B, Wc]
+            jd = _draw_cols(st, jjs)
+            ps = prog[jjs]
+            nreq_rows = n_req[ps]  # [B, Wc, S]
+            kths, avails = _earliest_shared(node_free, nreq_rows,
+                                            arrival[jjs].unsqueeze(-1), placer,
+                                            outage)
+            ct = CT.gather(1, ps[..., None, None].expand(B, Wc, S, 2))
+            rows = (ct[..., 0], ct[..., 1],
+                    runs.gather(1, ps.unsqueeze(-1).expand(B, Wc, S)), avails,
+                    C_pred[ps], T_pred[ps])
+            if tiered:
+                rows = _tier_rows(tt, ps, *rows)
+            c_r, t_r, r_r, a_r, cp_r, tp_r = rows
+            sels_x = select_batched(
+                pol, c_rows=c_r, t_rows=t_r, runs_rows=r_r, avail_rows=a_r,
+                k=K.gather(1, jd), c_pred_rows=cp_r, t_pred_rows=tp_r,
+                draws=None if draws is None else draws.gather(1, jd))
+            sels = sels_x % S if tiered else sels_x                  # [B, Wc]
+        with trace.span("easy.trial"):
+            factors = factor.gather(1, jd)
+            on_sel = lambda x: x.gather(-1, sels.unsqueeze(-1)).squeeze(-1)  # noqa: E731
+            starts = on_sel(avails)
+            T_acts = act[ps, sels_x, 0] * factors
+            needs = on_sel(nreq_rows)
+            # each slot's trial allocation, on its own chosen row
+            trials = _alloc_row(
+                node_free.gather(1, sels.unsqueeze(-1).expand(B, Wc, N)),
+                on_sel(kths), needs, starts + T_acts)  # [B, Wc, N]
 
-        # the no-delay guard for every slot at once: a trial can delay
-        # the head only on the head's reserved system sel_h, so recheck
-        # each trial's row of it (untouched rows give r_h back exactly)
-        sel_h = sels[:, 0]
-        head_row = node_free.gather(1, sel_h.view(B, 1, 1).expand(B, 1, N))
-        trial_h = torch.where((sels == sel_h.unsqueeze(1)).unsqueeze(-1),
-                              trials, head_row)                  # [B, Wc, N]
-        kth_h2 = kth_free_time(trial_h, needs[:, :1].expand(B, Wc),
-                               force=recheck)
-        avail_h2 = torch.maximum(kth_h2, arrival[jjs[:, :1]])
-        if outage is not None:
-            avail_h2 = _push_out_of_outage(avail_h2,
-                                           outage[sel_h].unsqueeze(1))
-        r_h = starts[:, 0]                                       # reservation
-        place_head = head_valid & (forced | (r_h <= now))
+        with trace.span("easy.recheck"):
+            # the no-delay guard for every slot at once: a trial can delay
+            # the head only on the head's reserved system sel_h, so recheck
+            # each trial's row of it (untouched rows give r_h back exactly)
+            sel_h = sels[:, 0]
+            head_row = node_free.gather(1, sel_h.view(B, 1, 1).expand(B, 1, N))
+            trial_h = torch.where((sels == sel_h.unsqueeze(1)).unsqueeze(-1),
+                                  trials, head_row)  # [B, Wc, N]
+            kth_h2 = kth_free_time(trial_h, needs[:, :1].expand(B, Wc),
+                                   force=recheck)
+            avail_h2 = torch.maximum(kth_h2, arrival[jjs[:, :1]])
+            if outage is not None:
+                avail_h2 = _push_out_of_outage(avail_h2,
+                                               outage[sel_h].unsqueeze(1))
+            r_h = starts[:, 0]  # reservation
+            place_head = head_valid & (forced | (r_h <= now))
 
-        # first fit: the least eligible slot index (Wc = none)
-        elig = torch.where(
-            slot == 0, place_head.unsqueeze(1),
-            (head_valid & ~place_head).unsqueeze(1) & (pend < J)
-            & (avail_h2 <= r_h.unsqueeze(1)))
-        chosen = torch.where(elig, slot, Wc).amin(1)             # [B]
-        ci = chosen.clamp_max(Wc - 1).unsqueeze(1)               # [B, 1]
-        pick = lambda x: x.gather(1, ci).squeeze(1)  # noqa: E731
-        return (chosen, pick(jjs), pick(ps), pick(sels_x), pick(sels),
-                pick(factors), pick(T_acts), pick(starts), pick(needs),
-                trials.gather(1, ci.unsqueeze(-1).expand(B, 1, N))
-                .squeeze(1))
+            # first fit: the least eligible slot index (Wc = none)
+            elig = torch.where(
+                slot == 0, place_head.unsqueeze(1),
+                (head_valid & ~place_head).unsqueeze(1) & (pend < J)
+                & (avail_h2 <= r_h.unsqueeze(1)))
+            chosen = torch.where(elig, slot, Wc).amin(1)             # [B]
+            ci = chosen.clamp_max(Wc - 1).unsqueeze(1)               # [B, 1]
+            pick = lambda x: x.gather(1, ci).squeeze(1)  # noqa: E731
+            return (chosen, pick(jjs), pick(ps), pick(sels_x), pick(sels),
+                    pick(factors), pick(T_acts), pick(starts), pick(needs),
+                    trials.gather(1, ci.unsqueeze(-1).expand(B, 1, N))
+                    .squeeze(1))
 
     for lo, n_steps in _chunks(J + W, chunk):
         if chunk is not None:
@@ -777,69 +801,77 @@ def _easy_run(arrs: dict, w: Workload, policy: Policy, lanes: dict, *,
                 lo, lo + n_steps, device=dev).view(1, -1), J)
         d = _job_draws(st, st.get("ids"))
         factor, draws, K = d["factor"], d["draws"], d["K"]
-        for t in range(lo, lo + n_steps):
-            # push the arrival into the first sentinel slot (size <= W at step
-            # start keeps it in range); a full window forces the head
-            if t < J:
-                size0 = (pend < J).sum(1, keepdim=True)              # [B, 1]
-                pend.scatter_(1, size0.clamp_max(Wc - 1), t)
-                forced = size0.squeeze(1) == W
-                now = float(arrival_h[t])
-            else:
-                forced, now = no, BIG
-            head_valid = pend[:, 0] < J
+        with trace.span("run.steps"):
+            for t in range(lo, lo + n_steps):
+                with trace.span("step", t=t):
+                    with trace.span("easy.push"):
+                        # push the arrival into the first sentinel slot
+                        # (size <= W at step start keeps it in range); a
+                        # full window forces the head
+                        if t < J:
+                            size0 = (pend < J).sum(1, keepdim=True)  # [B, 1]
+                            pend.scatter_(1, size0.clamp_max(Wc - 1), t)
+                            forced = size0.squeeze(1) == W
+                            now = float(arrival_h[t])
+                        else:
+                            forced, now = no, BIG
+                        head_valid = pend[:, 0] < J
 
-            r = (unrolled_step if unrolled else batched_step)(
-                pend, head_valid, forced, now, factor, draws, K)
-            chosen, jj, p, sel_x, sel, fac, T_act, start, need, new_row = r
-            placed = chosen < Wc
+                    r = (unrolled_step if unrolled else batched_step)(
+                        pend, head_valid, forced, now, factor, draws, K)
+                    chosen, jj, p, sel_x, sel, fac, T_act, start, need, new_row = r
+                    placed = chosen < Wc
 
-            # the chosen trial row IS the placement
-            row_idx = sel.view(B, 1, 1).expand(B, 1, N)
-            node_free.scatter_(1, row_idx, torch.where(
-                placed.view(B, 1, 1), new_row.unsqueeze(1),
-                node_free.gather(1, row_idx)))
-            # the learned tables absorb base observations, old * n + truth *
-            # factor, with the product the reference's compiled step fuses
-            # (read from its CPU machine code): truth * factor under DVFS
-            # tiers or with a single lane of the batched step, else old * n
-            # (the unrolled step fuses old * n at any lane count)
-            flat = (p * S + sel).unsqueeze(1)                        # [B, 1]
-            flat2 = flat.unsqueeze(-1).expand(B, 1, 2)
-            old = CT_flat.gather(1, flat2).squeeze(1)                # [B, 2]
-            n = runs_flat.gather(1, flat).to(F32)                    # [B, 1]
-            obs = truth[p, sel]                                      # C, T true
-            tot = (fma(obs, fac.unsqueeze(1), old * n) if fuse_obs
-                   else fma(old, n, obs * fac.unsqueeze(1)))
-            CT_flat.scatter_(1, flat2, torch.where(
-                placed.unsqueeze(1), tot / (n + 1), old).unsqueeze(1))
-            runs_flat.scatter_add_(1, flat, placed.to(torch.int32).unsqueeze(1))
-            backfill = placed & (chosen > 0)
-            nbf += backfill.to(torch.int32)
+                    with trace.span("easy.commit"):
+                        # the chosen trial row IS the placement
+                        row_idx = sel.view(B, 1, 1).expand(B, 1, N)
+                        node_free.scatter_(1, row_idx, torch.where(
+                            placed.view(B, 1, 1), new_row.unsqueeze(1),
+                            node_free.gather(1, row_idx)))
+                        # the learned tables absorb base observations, old *
+                        # n + truth * factor, with the product the
+                        # reference's compiled step fuses (read from its CPU
+                        # machine code): truth * factor under DVFS tiers or
+                        # with a single lane of the batched step, else old *
+                        # n (the unrolled step fuses old * n at any lane
+                        # count)
+                        flat = (p * S + sel).unsqueeze(1)  # [B, 1]
+                        flat2 = flat.unsqueeze(-1).expand(B, 1, 2)
+                        old = CT_flat.gather(1, flat2).squeeze(1)  # [B, 2]
+                        n = runs_flat.gather(1, flat).to(F32)  # [B, 1]
+                        obs = truth[p, sel]  # C, T true
+                        tot = (fma(obs, fac.unsqueeze(1), old * n) if fuse_obs
+                               else fma(old, n, obs * fac.unsqueeze(1)))
+                        CT_flat.scatter_(1, flat2, torch.where(
+                            placed.unsqueeze(1), tot / (n + 1), old).unsqueeze(1))
+                        runs_flat.scatter_add_(1, flat, placed.to(torch.int32).unsqueeze(1))
+                        backfill = placed & (chosen > 0)
+                        nbf += backfill.to(torch.int32)
 
-            # pop the chosen slot: shift the tail left (chosen == Wc: no-op)
-            shifted = torch.cat([pend[:, 1:], sentinel], 1)
-            pend = torch.where(slot < chosen.unsqueeze(1), pend, shifted)
+                        # pop the chosen slot: shift the tail left (chosen ==
+                        # Wc: no-op)
+                        shifted = torch.cat([pend[:, 1:], sentinel], 1)
+                        pend = torch.where(slot < chosen.unsqueeze(1), pend, shifted)
 
-            if totals_only:
-                E_act = act[p, sel_x, 1] * fac
-                finish = (fma(act[p, sel_x, 0], fac, start) if unrolled
-                          else start + T_act)
-                wait = start - arrival[jj]
-                add = torch.stack([E_act, wait, (wait + T_act) / T_act], 1)
-                sums, comps = _kahan(sums, comps, torch.where(
-                    placed.unsqueeze(1), add, 0.0))
-                fin_max = torch.maximum(fin_max,
-                                        torch.where(placed, finish, 0.0))
-                busy.scatter_add_(1, sel.unsqueeze(1), torch.where(
-                    placed, T_act * need, 0.0).unsqueeze(1))
-                wait_max = torch.maximum(wait_max,
-                                         torch.where(placed, wait, 0.0))
-            else:
-                j_pl = torch.where(placed, jj, J).unsqueeze(1)
-                sel_out.scatter_(1, j_pl, sel_x.unsqueeze(1))
-                start_out.scatter_(1, j_pl, start.unsqueeze(1))
-                bf_out.scatter_(1, j_pl, backfill.unsqueeze(1))
+                        if totals_only:
+                            E_act = act[p, sel_x, 1] * fac
+                            finish = (fma(act[p, sel_x, 0], fac, start) if unrolled
+                                      else start + T_act)
+                            wait = start - arrival[jj]
+                            add = torch.stack([E_act, wait, (wait + T_act) / T_act], 1)
+                            sums, comps = _kahan(sums, comps, torch.where(
+                                placed.unsqueeze(1), add, 0.0))
+                            fin_max = torch.maximum(fin_max,
+                                                    torch.where(placed, finish, 0.0))
+                            busy.scatter_add_(1, sel.unsqueeze(1), torch.where(
+                                placed, T_act * need, 0.0).unsqueeze(1))
+                            wait_max = torch.maximum(wait_max,
+                                                     torch.where(placed, wait, 0.0))
+                        else:
+                            j_pl = torch.where(placed, jj, J).unsqueeze(1)
+                            sel_out.scatter_(1, j_pl, sel_x.unsqueeze(1))
+                            start_out.scatter_(1, j_pl, start.unsqueeze(1))
+                            bf_out.scatter_(1, j_pl, backfill.unsqueeze(1))
 
     tabs = {"C_tab": CT[..., 0], "T_tab": CT[..., 1], "runs": runs,
             "n_backfilled": nbf}
@@ -1069,35 +1101,40 @@ class Scheduler:
         else:
             core_run = _arrival_run
         run = lambda arrs, ln: core_run(arrs, w, pol, ln, **kw)  # noqa: E731
-        if self.shards is None:
-            out = run(_workload_arrays(w, dev),
-                      {n: x.to(dev) for n, x in lanes.items()})
-        else:
-            # imported here: the mesh module counts devices at call time
-            from repro_torch.launch.mesh import make_grid_devices
-            out = _lane_split(run, lambda d: _workload_arrays(w, d), lanes,
-                              make_grid_devices(self.shards, dev), dev)
+        with trace.span("run", core=core, queue=pol.queue, B=B,
+                        J=int(len(w.prog))):
+            if self.shards is None:
+                with trace.span("run.workload_arrays"):
+                    arrs = _workload_arrays(w, dev)
+                    ln = {n: x.to(dev) for n, x in lanes.items()}
+                out = run(arrs, ln)
+            else:
+                # imported here: the mesh module counts devices at call time
+                from repro_torch.launch.mesh import make_grid_devices
+                out = _lane_split(run, lambda d: _workload_arrays(w, d), lanes,
+                                  make_grid_devices(self.shards, dev), dev)
+            with trace.span("run.results"):
+                axes, lead = [], []
+                for name, present, size in (("fault", has_fault_axis, F),
+                                            ("policy", has_policy_axis, G),
+                                            ("seed", has_seed_axis, R)):
+                    if present:
+                        axes.append(name)
+                        lead.append(size)
+                out = {n: x.reshape(tuple(lead) + x.shape[1:])
+                       for n, x in out.items()}
 
-        axes, lead = [], []
-        for name, present, size in (("fault", has_fault_axis, F),
-                                    ("policy", has_policy_axis, G),
-                                    ("seed", has_seed_axis, R)):
-            if present:
-                axes.append(name)
-                lead.append(size)
-        out = {n: x.reshape(tuple(lead) + x.shape[1:]) for n, x in out.items()}
-
-        meta = dict(axes=tuple(axes), n_jobs=int(len(w.prog)),
-                    n_nodes=np.asarray(w.n_nodes), programs=w.programs,
-                    systems=w.systems, freq_tiers=pol.freq_tiers)
-        if not axes:
-            return SimResult(**out, **meta)
-        coords = {}
-        if has_fault_axis:
-            coords["fault"] = self.faults
-        if has_policy_axis:
-            coords["policy"] = replace(pol, k=k, ucb_scale=u, power_cap=pc,
-                                       freq_weight=fw)
-        if has_seed_axis:
-            coords["seed"] = self.seeds
-        return CampaignResult(**out, **meta, coords=coords)
+                meta = dict(axes=tuple(axes), n_jobs=int(len(w.prog)),
+                            n_nodes=np.asarray(w.n_nodes), programs=w.programs,
+                            systems=w.systems, freq_tiers=pol.freq_tiers)
+                if not axes:
+                    return SimResult(**out, **meta)
+                coords = {}
+                if has_fault_axis:
+                    coords["fault"] = self.faults
+                if has_policy_axis:
+                    coords["policy"] = replace(pol, k=k, ucb_scale=u,
+                                               power_cap=pc, freq_weight=fw)
+                if has_seed_axis:
+                    coords["seed"] = self.seeds
+                return CampaignResult(**out, **meta, coords=coords)

@@ -11,6 +11,10 @@ Default: ``cuda`` for a CUDA tensor; on a CPU tensor ``torch`` for
 Every mode agrees bit for bit, since the answer is an element of the input.
 The reference's ``pallas``/``pallas_interpret`` modes have no counterpart
 here and raise.
+
+Each call of a public entry counts once in the tracer (``utils/trace``),
+in every mode: ``kth_free.calls`` 1 and ``kth_free.rows`` the output's
+size, in the innermost open span, which names the call site.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 from repro_torch.kernels.kth_free.kernel import (kth_free_cuda,
                                                  radix_select_kth)
 from repro_torch.kernels.kth_free.ref import kth_free_ref
+from repro_torch.utils import trace
 
 MODES = ("cuda", "torch", "sort")
 
@@ -31,12 +36,25 @@ def check_mode(force: str | None) -> None:
                          f"are {MODES}")
 
 
+def _counted(out):
+    """``out`` of one public entry's call, counted in the tracer."""
+    trace.count("kth_free.calls")
+    trace.count("kth_free.rows", out.numel())
+    return out
+
+
 def kth_free_time(node_free, n_req, *, force: str | None = None):
     """node_free: [..., S, maxN] f32 per-node free times; n_req: [..., S]
     int.  Returns [..., S] f32: the earliest time n_req nodes of each
     system are free.  Any leading dimensions batch (grid lanes, EASY
     candidates)."""
     check_mode(force)
+    return _counted(_kth_free_time(node_free, n_req, force))
+
+
+def _kth_free_time(node_free, n_req, force):
+    """``kth_free_time`` uncounted: the shared and rows entries select
+    through it."""
     mode = force or ("cuda" if node_free.is_cuda else "torch")
     if mode == "cuda":
         if n_req.dtype != torch.int32:
@@ -72,11 +90,11 @@ def kth_free_time_shared(node_free, n_req, *, force: str | None = None):
     W = n_req.shape[-2]
     if mode == "sort":
         srt = torch.sort(node_free, dim=-1).values.unsqueeze(-3)
-        return _sorted_kth(srt.expand(srt.shape[:-3] + (W,) + srt.shape[-2:]),
-                           n_req)
+        return _counted(_sorted_kth(
+            srt.expand(srt.shape[:-3] + (W,) + srt.shape[-2:]), n_req))
     free_b = node_free.unsqueeze(-3).expand(
         node_free.shape[:-2] + (W,) + node_free.shape[-2:])
-    return kth_free_time(free_b, n_req, force=mode)
+    return _counted(_kth_free_time(free_b, n_req, mode))
 
 
 def kth_free_time_rows(node_free, sels, n_req, *, force: str | None = None):
@@ -90,6 +108,6 @@ def kth_free_time_rows(node_free, sels, n_req, *, force: str | None = None):
     idx = sels.to(torch.int64).unsqueeze(-1).expand(
         sels.shape + node_free.shape[-1:])
     if mode == "sort":
-        return _sorted_kth(torch.sort(node_free, dim=-1).values.gather(-2, idx),
-                           n_req)
-    return kth_free_time(node_free.gather(-2, idx), n_req, force=mode)
+        return _counted(_sorted_kth(
+            torch.sort(node_free, dim=-1).values.gather(-2, idx), n_req))
+    return _counted(_kth_free_time(node_free.gather(-2, idx), n_req, mode))

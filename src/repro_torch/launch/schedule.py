@@ -36,6 +36,13 @@ local devices and ``--chunk SIZE`` runs the steps in SIZE-step windows
 (with ``--totals-only``, memory flat in the number of jobs).
 ``--easy-eval unrolled`` runs the reference's per-slot EASY loop
 (2 W + 2 kth-free calls a step, the same placements).
+``--spans-out PATH`` runs under the port's tracer (``utils/trace``) and
+writes its spans as Chrome-trace JSON (host spans on one track, their
+stream intervals on another, on the card), for ``chrome://tracing`` or
+Perfetto:
+
+    PYTHONPATH=src python -m repro_torch.launch.schedule --device cpu \
+        --jobs 200 --queue easy_backfill:window=16 --spans-out spans.json
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from repro_torch.data.scenarios import (ARRIVAL_KINDS, NPB_LARGE, NPB_SMALL,
                                         load_swf, maintenance_windows,
                                         make_stream_workload,
                                         workload_from_trace)
+from repro_torch.utils import trace
 
 
 def _parse_outages(specs, n_systems):
@@ -132,8 +140,21 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
+    ap.add_argument("--spans-out", default="", metavar="PATH",
+                    help="record the run's spans and counters and write "
+                         "them as Chrome-trace JSON to PATH")
     args = ap.parse_args(argv)
+    if not args.spans_out:
+        return _run(args)
+    on_card = args.device is None or str(args.device).startswith("cuda")
+    with trace.collect(device=on_card) as rec:
+        res = _run(args)
+    rec.write_chrome_trace(args.spans_out)
+    return res
 
+
+def _run(args):
+    """Run what ``args`` describe and print the reference's lines."""
     w = build_workload(args)
     pol = build_policy(args)
     common = dict(faults=FaultConfig(straggler_prob=args.stragglers,
